@@ -1,10 +1,14 @@
 """AlignEngine: the single entry point for HAlign-II's map(1) stage.
 
-It owns length-bucketed batching (``bucketing.bucket_plan``: each bucket
-runs at its own power-of-two width instead of the global Lmax) and the
-per-pair full-DP fallback shared by the banded backends (band overflow)
-and the k-mer chaining path (chain failure). Bucket merges and fallback
-merges stay on the device; only the (B,) ok flags cross to the host.
+It owns backend selection (the reference's names; ``backends`` maps them
+onto the full-DP and banded routes, and a local engine or a local
+override on a banded backend takes the full DP, since a diagonal band
+cannot host an anywhere-start local path), length-bucketed batching
+(``bucketing.bucket_plan``: each bucket runs at its own power-of-two
+width instead of the global Lmax) and the per-pair full-DP fallback
+shared by the banded backends (band overflow) and the k-mer chaining
+path (chain failure). Bucket merges and fallback merges stay on the
+device; only the (B,) ok flags cross to the host.
 
 Two host batch APIs:
 
@@ -86,6 +90,7 @@ class AlignEngine:
     gap_extend: int
     gap_code: int = 5
     backend: str = "auto"
+    band: int = 64
     local: bool = False
     bucket: bool = True
     min_bucket: int = 32
@@ -98,29 +103,82 @@ class AlignEngine:
         return self.sub.device
 
     @property
+    def _is_banded(self) -> bool:
+        # a local engine on a banded name runs the full DP, as in the
+        # reference (its __post_init__ rewrites the backend to jnp)
+        return self.backend in backends.BANDED and not self.local
+
+    @property
     def route(self) -> str:
-        """``cuda`` (the kernel) or ``torch`` (the plain version)."""
-        return backends.resolve_backend(self.backend, self.sub.device)
+        """The route this engine's primitives run: ``cuda`` / ``torch``
+        (full DP, kernel / plain) or ``cuda-banded`` / ``torch-banded``."""
+        return backends.resolve_backend(
+            self.backend if self._is_banded else "auto", self.sub.device)
 
     def batch_fn(self, *, local: Optional[bool] = None):
-        """(Q, lens, b, lb) -> BatchAlignment against one target."""
+        """(Q, lens, b, lb) -> BatchAlignment against one target.
+
+        ``local`` overrides the engine's local mode for this primitive; a
+        local override routes a banded backend to the full DP.
+        """
         loc = self.local if local is None else local
+        banded = self.backend in backends.BANDED and not loc
 
         def fn(Q, lens, b, lb):
+            if banded:
+                return backends.banded_align_batch(
+                    Q, lens, b, lb, self.sub, gap_open=self.gap_open,
+                    gap_extend=self.gap_extend, band=self.band,
+                    gap_code=self.gap_code)
             return backends.sw_align_batch(
                 Q, lens, b, lb, self.sub, gap_open=self.gap_open,
                 gap_extend=self.gap_extend, local=loc,
                 gap_code=self.gap_code)
         return fn
 
+    def _full_dp_fn(self):
+        """The full-DP global primitive used for per-pair fallbacks."""
+        def fn(Q, lens, b, lb):
+            return backends.sw_align_batch(
+                Q, lens, b, lb, self.sub, gap_open=self.gap_open,
+                gap_extend=self.gap_extend, local=False,
+                gap_code=self.gap_code)
+        return fn
+
     def pairs_fn(self, *, local: Optional[bool] = None):
-        """(Q, qlens, T, tlens) -> BatchAlignment with per-pair targets."""
+        """(Q, qlens, T, tlens) -> BatchAlignment with per-pair targets.
+
+        ``banded`` runs the banded forward kernel + the banded traceback,
+        ``banded-pallas`` the fused kernel; ``local`` overrides as in
+        ``batch_fn``.
+        """
         loc = self.local if local is None else local
+        be = self.backend if self.backend in backends.BANDED and not loc \
+            else "full"
 
         def fn(Q, qlens, T, tlens):
+            if be == "banded":
+                return backends.banded_align_pairs(
+                    Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
+                    gap_extend=self.gap_extend, band=self.band,
+                    gap_code=self.gap_code)
+            if be == "banded-pallas":
+                return backends.banded_fused_align_pairs(
+                    Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
+                    gap_extend=self.gap_extend, band=self.band,
+                    gap_code=self.gap_code)
             return backends.sw_align_pairs(
                 Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
                 gap_extend=self.gap_extend, local=loc,
+                gap_code=self.gap_code)
+        return fn
+
+    def _full_dp_pairs_fn(self):
+        """Full-DP global pairs primitive for per-pair fallbacks."""
+        def fn(Q, qlens, T, tlens):
+            return backends.sw_align_pairs(
+                Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
+                gap_extend=self.gap_extend, local=False,
                 gap_code=self.gap_code)
         return fn
 
@@ -194,7 +252,7 @@ class AlignEngine:
         if len(bad):
             _M_FALLBACK.labels(backend=self.route).inc(len(bad))
             _M_CALLS.labels(api="to_center", backend=self.route).inc()
-            res = self.batch_fn(local=False)(Q[bad], lens[bad], b, lb)
+            res = self._full_dp_fn()(Q[bad], lens[bad], b, lb)
             self._merge(rows, bad, res, P)
         return EngineResult(*rows[:4], len(bad))
 
@@ -261,8 +319,8 @@ class AlignEngine:
         if len(bad):
             _M_FALLBACK.labels(backend=self.route).inc(len(bad))
             _M_CALLS.labels(api="pairs", backend=self.route).inc()
-            res = self.pairs_fn(local=False)(Q[bad], qlens[bad], T[bad],
-                                             tlens[bad])
+            res = self._full_dp_pairs_fn()(Q[bad], qlens[bad], T[bad],
+                                           tlens[bad])
             self._merge(rows, bad, res, P)
             n_calls += 1
         return PairsResult(*rows[:4], len(bad), n_calls)
@@ -278,9 +336,11 @@ class AlignEngine:
         if len(bad) == 0:
             return a_rows, b_rows, 0
         # the k-mer assembly is global, so its fallback must be too — even
-        # under a local (Smith-Waterman) engine
-        eng = (self if not self.local
-               else dataclasses.replace(self, local=False))
+        # under a local (Smith-Waterman) engine, whose banded name already
+        # meant the full DP (as in the reference)
+        eng = (self if not self.local else dataclasses.replace(
+            self, local=False, backend="auto"
+            if self.backend in backends.BANDED else self.backend))
         res = eng.align_to_center(Q[bad], lens[bad], b, lb)
         P = max(int(a_rows.shape[1]), int(res.a_row.shape[1]))
         a_rows = _pad_cols(a_rows, P, self.gap_code)

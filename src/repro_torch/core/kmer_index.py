@@ -47,24 +47,34 @@ def build_center_index(center, lc, *, k: int, r: int = 4):
     """(4^k, r) int32 table: code -> first r positions in the center
     (EMPTY pad) — the dense-array equivalent of a trie node's position
     list. ``center`` is (n,) int8, ``lc`` its length."""
-    dev = center.device
-    codes = kmer_codes(center[None, :],
-                       torch.as_tensor([int(lc)], device=dev), k)[0]
+    return build_tables(center[None, :],
+                        torch.as_tensor([int(lc)], device=center.device),
+                        k=k, r=r)[0]
+
+
+def build_tables(seqs, lens, *, k: int, r: int = 4):
+    """``build_center_index`` for every row of ``seqs`` (D, n) with
+    lengths ``lens`` (D,) at once: (D, 4^k, r) int32 (a search index's
+    per-row tables)."""
+    dev = seqs.device
+    D = seqs.shape[0]
+    codes = kmer_codes(seqs, lens, k)                       # (D, w)
     size = 4 ** k
-    pos = torch.arange(codes.shape[0], dtype=torch.int32, device=dev)
+    pos = torch.arange(codes.shape[1], dtype=torch.int32,
+                       device=dev).expand(D, codes.shape[1])
     valid = codes >= 0
     cols = []
-    floor = torch.full((size,), -1, dtype=torch.int32, device=dev)
+    floor = torch.full((D, size), -1, dtype=torch.int32, device=dev)
     for _ in range(r):
-        live = valid & (pos > floor[codes.clamp(min=0).long()])
+        live = valid & (pos > floor.gather(1, codes.clamp(min=0).long()))
         # slot ``size`` collects the dropped windows and is cropped away
-        tbl = torch.full((size + 1,), EMPTY, dtype=torch.int32, device=dev)
+        tbl = torch.full((D, size + 1), EMPTY, dtype=torch.int32, device=dev)
         idx = torch.where(live, codes, size).long()
-        tbl.scatter_reduce_(0, idx, pos, reduce="amin", include_self=True)
-        tbl = tbl[:size]
+        tbl.scatter_reduce_(1, idx, pos, reduce="amin", include_self=True)
+        tbl = tbl[:, :size]
         cols.append(tbl)
         floor = tbl
-    return torch.stack(cols, dim=1)
+    return torch.stack(cols, dim=2)
 
 
 def chain_anchors(q, lq, table, lc, *, k: int, stride: int, max_anchors: int,
@@ -75,11 +85,18 @@ def chain_anchors(q, lq, table, lc, *, k: int, stride: int, max_anchors: int,
     and the inter-anchor segments it closes are both <= max_seg. ``ok`` is
     False when the final tail exceeds max_seg or no anchor coverage was
     achieved — the driver then realigns the pair with full DP.
+
+    ``table`` is one (4^k, r) center table for every query (the MSA
+    stage) or a (B, 4^k, r) table per query (the search seed stage, each
+    pair's DB row); ``lc`` is one target length or a (B,) tensor of them.
     """
     B, n = q.shape
     dev = q.device
     lq = lq.to(torch.int32)
-    lc = int(lc)
+    if torch.is_tensor(lc) and lc.dim() == 1:
+        lc = lc.to(device=dev, dtype=torch.int32)
+    else:
+        lc = int(lc)
     A = max_anchors
     zeros = torch.zeros((B, A), dtype=torch.int32, device=dev)
     codes = kmer_codes(q, lq, k)
@@ -89,8 +106,10 @@ def chain_anchors(q, lq, table, lc, *, k: int, stride: int, max_anchors: int,
         ok = (lq <= max_seg) & (lc <= max_seg)
         return Anchors(zeros, zeros.clone(),
                        torch.zeros((B,), dtype=torch.int32, device=dev), ok)
-    cand = torch.where((codes >= 0)[:, :, None],
-                       table[codes.clamp(min=0).long()], EMPTY)   # (B, T, r)
+    idx = codes.clamp(min=0).long()
+    hits = (table[idx] if table.dim() == 2 else
+            table[torch.arange(B, device=dev)[:, None], idx])
+    cand = torch.where((codes >= 0)[:, :, None], hits, EMPTY)     # (B, T, r)
     q_end = torch.zeros((B,), dtype=torch.int32, device=dev)
     c_end = torch.zeros((B,), dtype=torch.int32, device=dev)
     cnt = torch.zeros((B,), dtype=torch.int32, device=dev)

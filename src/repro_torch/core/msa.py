@@ -11,9 +11,13 @@ Pipeline (paper Fig. 3):
   3. reduce(1): merge insert-space profiles (columnwise max)
   4. map(2): rebuild every row in the merged frame
 
-Every DP — the inter-anchor segments and the full-DP realignments — runs
-through ``kernels.sw.ops.gotoh_forward``: the hand-written kernel on the
-card, its plain version on the CPU.
+The inter-anchor segment DPs run through the full-DP route
+(``kernels.sw.ops.gotoh_forward``) under every backend, as the reference
+runs them through ``pairwise.align_pair``; the whole-pair alignments
+(``plain``/``sw``, and the realignment of failed chains) go through the
+engine, whose backend may be banded (``kernels.banded``). Each wrapper
+launches its hand-written kernel on the card and runs its plain version
+on the CPU.
 """
 from __future__ import annotations
 
@@ -66,7 +70,8 @@ class MSAConfig:
         return AlignEngine(self.matrix(device), gap_open=self.gap_open,
                            gap_extend=self.gap_extend,
                            gap_code=self.alpha().gap_code,
-                           backend=self.backend, local=self.local,
+                           backend=self.backend, band=self.band,
+                           local=self.local,
                            bucket=self.bucket if bucket is None else bucket)
 
 

@@ -3,7 +3,8 @@
 Each source ``src/repro_torch/csrc/<name>.cu`` exposes a plain C entry
 point and is compiled on first use, by ``nvcc`` alone, into
 ``build/repro_torch/<name>-<hash>.so`` at the repository root (the hash
-covers the source and the flags, so an edited source rebuilds). The
+covers the source, the shared ``*.cuh`` headers and the flags, so an
+edited source rebuilds). The
 library is loaded with ``ctypes``; wrappers pass ``data_ptr()``s and the
 current stream as ``c_void_p``. Nothing here runs at import time.
 """
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("sw_forward", "match_valid")
+SOURCES = ("sw_forward", "match_valid", "banded_forward", "banded_fused")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -40,7 +41,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the hash covers the source, the shared headers and the flags
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

@@ -8,9 +8,11 @@ The same flags and outputs as ``repro.launch.msa_run`` (``aligned.fasta``,
 (``cuda``, the default; it raises when there is none) or, with
 ``--device cpu``, on the plain PyTorch path. ``report["backend"]`` names
 the DP route that ran (``cuda`` = the hand-written kernels, ``torch`` =
-their plain versions). Flags of the reference whose path is not ported
-yet raise an error naming the ROADMAP.md item: ``--dist``, ``--tree``
-other than ``nj``/``none``, ``--backend banded*``, ``--tree-ll``.
+their plain versions; ``-banded`` for ``--backend banded|banded-pallas``,
+which run the banded forward kernel with ``--band`` columns). Flags of
+the reference whose path is not ported yet raise an error naming the
+ROADMAP.md item: ``--dist``, ``--tree`` other than ``nj``/``none``,
+``--tree-ll``.
 """
 from __future__ import annotations
 
@@ -24,8 +26,6 @@ _NOT_PORTED = {
             "distributed runtime)",
     "tree": "--tree {} is not ported yet (ROADMAP.md §1 item 8, tree "
             "backends; item 9 for ml)",
-    "backend": "--backend {} is not ported yet (ROADMAP.md §1 item 7, "
-               "banded alignment)",
     "tree_ll": "--tree-ll is not ported yet (ROADMAP.md §1 item 9, "
                "likelihood)",
 }
@@ -55,9 +55,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "jnp", "pallas", "banded",
                              "banded-pallas"],
-                    help="map(1) DP backend; auto/jnp/pallas all run the "
-                         "device's route (banded* not ported)")
-    ap.add_argument("--band", type=int, default=64)
+                    help="map(1) DP backend; auto/jnp/pallas run the "
+                         "full DP, banded/banded-pallas the banded "
+                         "forward kernel, on the device's route")
+    ap.add_argument("--band", type=int, default=64,
+                    help="band width for the banded backends")
     ap.add_argument("--dist", action="store_true",
                     help="distributed pipeline (not ported)")
     ap.add_argument("--mesh", default=None)
@@ -76,8 +78,6 @@ def main(argv=None):
         parser.error(_NOT_PORTED["dist"])
     if args.tree not in ("nj", "none"):
         parser.error(_NOT_PORTED["tree"].format(args.tree))
-    if args.backend.startswith("banded"):
-        parser.error(_NOT_PORTED["backend"].format(args.backend))
     if args.tree_ll:
         parser.error(_NOT_PORTED["tree_ll"])
     from ..device import resolve_device

@@ -1,0 +1,182 @@
+"""Port parity: the banded kernels' plain versions against the JAX package.
+
+``kernels.banded.ops`` on CPU tensors runs the plain version of
+``csrc/banded_forward.cu`` and ``csrc/banded_fused.cu``; the same numpy
+inputs go through the JAX band scan (``repro.align.banded``) and the
+Pallas forward kernel in interpret mode. Exact on scores, start state,
+edge flags, every direction byte, aligned rows, lengths and ok flags.
+The JAX fused kernel cannot run under the local JAX (``pl.store``), so
+kernel 4's oracle is the JAX forward + traceback, as in
+``tests/test_kernels_banded.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.align import banded as jb
+from repro.core import alphabet as jab
+from repro.core import pairwise as jpw
+from repro.kernels.banded.ops import banded_forward_pallas
+from repro_torch.align import banded as tb
+from repro_torch.kernels.banded import ops
+
+SUB = np.asarray(jab.dna_matrix(), np.float32)
+TSUB = torch.from_numpy(SUB)
+
+
+def _case(seed, B, n, m):
+    rng = np.random.default_rng(seed)
+    A = rng.integers(0, 4, (B, n)).astype(np.int8)
+    T = rng.integers(0, 4, (B, m)).astype(np.int8)
+    lens = np.stack([rng.integers(0, n + 1, B),
+                     rng.integers(0, m + 1, B)], 1).astype(np.int32)
+    lens[0] = (0, m)              # empty query
+    lens[1] = (n, 0)              # empty target
+    lens[2] = (1, 1)              # length-1 pair
+    lens[-1] = (n, m)             # full width
+    return A, T, lens
+
+
+def _jax_forward(A, T, lens, go, ge, W):
+    return jax.vmap(lambda q, t, l: jb.banded_forward(
+        q, l[0], t, l[1], jnp.asarray(SUB), go, ge, band=W))(
+            jnp.asarray(A), jnp.asarray(T), jnp.asarray(lens))
+
+
+def _jax_pairs(A, T, lens, go, ge, W, gap=5):
+    def one(q, t, l):
+        f = jb.banded_forward(q, l[0], t, l[1], jnp.asarray(SUB), go, ge,
+                              band=W)
+        ar, br, k, ok = jb.banded_traceback(q, t, f, gap, band=W)
+        return f.score, ar, br, k, ok
+    return jax.vmap(one)(jnp.asarray(A), jnp.asarray(T), jnp.asarray(lens))
+
+
+def _port(fn, A, T, lens, **kw):
+    return fn(torch.from_numpy(A), torch.from_numpy(T),
+              torch.from_numpy(lens), TSUB, **kw)
+
+
+def _eq(x, y, what):
+    np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=what)
+
+
+@pytest.mark.parametrize("B,n,m,W", [
+    (5, 32, 32, 8), (5, 40, 24, 16), (4, 24, 40, 64), (4, 20, 20, 42),
+])
+@pytest.mark.parametrize("go,ge", [(3, 1), (5, 2)])
+def test_forward_plain_matches_jax_scan_and_pallas(B, n, m, W, go, ge):
+    """Against the vmapped jnp scan and the Pallas kernel (interpret):
+    score, start, state, edge and the whole (B, n, W) direction tensor
+    (the band state advances past ``la`` in all three)."""
+    A, T, lens = _case(n * 100 + W, B, n, m)
+    got = _port(ops.banded_forward, A, T, lens, gap_open=go, gap_extend=ge,
+                band=W)
+    scan = _jax_forward(A, T, lens, go, ge, W)
+    pallas = banded_forward_pallas(
+        jnp.asarray(A), jnp.asarray(T), jnp.asarray(lens), jnp.asarray(SUB),
+        gap_open=go, gap_extend=ge, band=W, block_rows=8, interpret=True)
+    for name, ref in (("scan", scan), ("pallas", pallas)):
+        for field in ("dirs", "score", "start_i", "start_j", "start_state",
+                      "edge"):
+            _eq(getattr(got, field).numpy(), getattr(ref, field),
+                f"{name} {field}")
+
+
+@pytest.mark.parametrize("go,ge", [(3, 1), (5, 2)])
+def test_full_coverage_band_equals_full_dp(go, ge):
+    """With ``W >= 2*lb + 2`` the band covers every column: the banded
+    score is the full Gotoh forward's, and no pair is flagged."""
+    B, n, m = 6, 24, 30
+    A, T, lens = _case(7 + go, B, n, m)
+    W = 2 * m + 2
+    got = _port(ops.banded_forward, A, T, lens, gap_open=go, gap_extend=ge,
+                band=W)
+    full = jax.vmap(lambda q, t, l: jpw.gotoh_forward(
+        q, l[0], t, l[1], jnp.asarray(SUB), go, ge).score)(
+            jnp.asarray(A), jnp.asarray(T), jnp.asarray(lens))
+    _eq(got.score.numpy(), full, "score")
+    score, _, _, _, ok = _port(ops.banded_pairs_fused, A, T, lens,
+                               gap_open=go, gap_extend=ge, band=W)
+    _eq(score.numpy(), full, "fused score")
+    assert bool(ok.all())
+
+
+@pytest.mark.parametrize("B,n,m,W", [
+    (5, 32, 32, 8), (4, 48, 32, 16), (3, 24, 48, 64),
+])
+def test_fused_plain_matches_jax_forward_traceback(B, n, m, W):
+    """Scores, aligned rows, lengths and ok flags equal the JAX band
+    forward + traceback."""
+    A, T, lens = _case(n + m + W, B, n, m)
+    got = _port(ops.banded_pairs_fused, A, T, lens, gap_open=3,
+                gap_extend=1, band=W)
+    ref = _jax_pairs(A, T, lens, 3, 1, W)
+    for name, x, y in zip(("score", "a_row", "b_row", "aln_len", "ok"),
+                          got, ref):
+        _eq(x.numpy(), y, name)
+    # align.banded.banded_align_pair: the same alignment, as an AlignResult
+    res, ok = tb.banded_align_pair(
+        torch.from_numpy(A), torch.from_numpy(lens[:, 0]),
+        torch.from_numpy(T), torch.from_numpy(lens[:, 1]), TSUB,
+        gap_open=3, gap_extend=1, band=W)
+    jres, jok = jax.vmap(lambda q, t, l: jb.banded_align_pair(
+        q, l[0], t, l[1], jnp.asarray(SUB), gap_open=3, gap_extend=1,
+        band=W))(jnp.asarray(A), jnp.asarray(T), jnp.asarray(lens))
+    for name in jres._fields:
+        _eq(getattr(res, name).numpy(), getattr(jres, name), name)
+    _eq(ok.numpy(), jok, "ok")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_escape_sweep_flags_match_jax(seed):
+    """The seeded adversarial sweep of ``tests/test_kernels_banded.py``
+    (random unrelated 24-mers at band 8): the ok flags and scores equal
+    the JAX band's, and no unflagged pair scores below the full DP."""
+    rng = np.random.default_rng(seed)
+    B, n, W, go, ge = 100, 24, 8, 3, 1
+    Q = rng.integers(0, 4, (B, n)).astype(np.int8)
+    T = rng.integers(0, 4, (B, n)).astype(np.int8)
+    lens = np.stack([rng.integers(1, n + 1, B),
+                     rng.integers(1, n + 1, B)], 1).astype(np.int32)
+    full = np.asarray(jax.vmap(lambda q, t, l: jpw.score_only(
+        q, l[0], t, l[1], jnp.asarray(SUB), gap_open=go, gap_extend=ge))(
+            jnp.asarray(Q), jnp.asarray(T), jnp.asarray(lens)))
+    jscore, _, _, _, jok = _jax_pairs(Q, T, lens, go, ge, W)
+    score, _, _, _, ok = _port(ops.banded_pairs_fused, Q, T, lens,
+                               gap_open=go, gap_extend=ge, band=W)
+    score, ok = score.numpy(), ok.numpy()
+    _eq(ok, jok, "ok")
+    _eq(score, jscore, "score")
+    assert not (ok & (score != full)).any()
+    assert (ok & (score == full)).sum() > 0
+
+
+def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
+    A, T, lens = _case(3, 4, 16, 16)
+    a, t, ln = torch.from_numpy(A), torch.from_numpy(T), \
+        torch.from_numpy(lens)
+    before = (ops.forward_launches, ops.fused_launches,
+              dict(ops.fused_variant_launches))
+    kw = dict(gap_open=3, gap_extend=1)
+    for fn in (ops.banded_forward, ops.banded_pairs_fused):
+        with pytest.raises(TypeError):
+            fn(a.to(torch.int32), t, ln, TSUB, band=8, **kw)
+        with pytest.raises(ValueError, match="lens"):
+            fn(a, t, ln.to(torch.int64), TSUB, band=8, **kw)
+        with pytest.raises(ValueError, match="band"):
+            fn(a, t, ln, TSUB, band=ops.MAX_BAND + 1, **kw)
+        with pytest.raises(ValueError, match="band"):
+            fn(a, t, ln, TSUB, band=0, **kw)
+        with pytest.raises(ValueError):
+            fn(a, t[:2], ln, TSUB, band=8, **kw)
+        with pytest.raises(ValueError, match="sub"):
+            fn(a, t, ln, TSUB.double(), band=8, **kw)
+        fn(a, t, ln, TSUB, band=8, **kw)            # the plain version
+    assert (ops.forward_launches, ops.fused_launches,
+            ops.fused_variant_launches) == before
+    # the fused kernel's band goes to shared memory up to ~200 KB
+    assert ops.fused_variant(1493, 64) == "smem"
+    assert ops.fused_variant(4096, 64) == "global"

@@ -19,6 +19,7 @@ from repro.core import msa as jmsa
 from repro.data import SimConfig, simulate_family
 from repro_torch.core import kmer_index as tk
 from repro_torch.core import msa as tmsa
+from repro_torch.phylo.engine import TreeEngine
 
 
 def _fallback_family():
@@ -115,5 +116,11 @@ def test_align_pairs_rows_and_calls_equal_reference(local):
 
 
 def test_engine_rejects_unported_backends():
+    # every map(1) backend name of the reference is ported; the tree
+    # engine that follows map(1) still refuses its cluster backend above
+    # the dense threshold
+    for backend in ("auto", "jnp", "pallas", "banded", "banded-pallas"):
+        tmsa.MSAConfig(backend=backend).engine("cpu")
+    tree = TreeEngine(gap_code=5, n_chars=5, backend="cluster", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmsa.MSAConfig(backend="banded").engine("cpu")
+        tree.build(np.zeros((tree.cluster_threshold + 1, 8), np.int8))

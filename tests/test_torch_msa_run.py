@@ -103,7 +103,7 @@ def test_msa_config_entry_points_default_to_the_card(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--dist"], ["--tree", "cluster"],
-                                   ["--backend", "banded"], ["--tree-ll"]])
+                                   ["--tree", "ml"], ["--tree-ll"]])
 def test_unported_flags_name_the_roadmap(runs, flags, capsys):
     d, _ = runs
     with pytest.raises(SystemExit):
