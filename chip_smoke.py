@@ -38,8 +38,24 @@ Phases, in order; any failure exits non-zero:
      fallbacks of the banded paths and the local search chunks too), hold
      the kernel bit-exact against its plain version again and time it
      beside that plain version, one PyTorch library call where there is
-     one, and its bound; print each kernel on its own path as one JSON
-     line.
+     one, and its bound;
+ 10. run the tree backends at 4,096 on phase 6's ``aligned.fasta``:
+     ``repro_torch.launch.tree_run --tree-ll`` with ``--backend dense``,
+     ``cluster`` and ``tiled --row-block 128``, then ``msa_run --tree
+     tiled --tree-ll`` once; check each tree (4,096 leaves, finite logL,
+     kernel 2 launched), that the cluster and tiled trees are bitwise
+     equal and the tiled run stayed within one (128, N) strip, and print
+     each run's seconds by stage, device peak, logL and normalized RF
+     against the simulated tree;
+ 11. run ``tree_run --backend auto`` (which must resolve to ``tiled``)
+     and ``--backend cluster`` on 65,536 aligned Phi_RNA-shaped rows
+     (no indels, so no MSA run): the two trees bitwise equal, the tiled
+     run within one strip; print seconds by stage, device peaks, kernel-2
+     launches and normalized RF;
+ 12. for each tree run, hold kernel 2's largest call, one single-column
+     call (M = 1) and one per-cluster square exact against the plain
+     version and time them; then print each kernel on its own path as one
+     JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -59,6 +75,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 N_SEQS = 4096
+N_BIG = 65536          # the tree backends' large run
 # H100 SXM peak rates: HBM, f32 outside the tensor
 # cores, int8 tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -218,32 +235,43 @@ def check_mv(N, M, L, *, seed, same=False):
     return err
 
 
-def time_mv(N, L):
-    """Time the kernel, its plain version and one library call at the
-    main-path shape and hold the kernel exact against the plain version;
-    returns (timings, largest count error)."""
+def time_mv_inputs(a, b, where: str, *, n_chars=5, gap_code=5):
+    """Time the kernel, its plain version and one library call on the
+    inputs and hold the kernel exact against the plain version; returns
+    (timings, largest count error)."""
     import torch
     from repro_torch.kernels.distance import ops, ref
-    a, _ = mv_inputs(N, N, L, seed=11)
-    ms, k = cuda_ms(lambda: ops.match_valid(a, a, n_chars=5, gap_code=5))
-    plain_ms, p = cuda_ms(lambda: ref.match_valid_ref(a, a, n_chars=5,
-                                                      gap_code=5), reps=1)
-    err = same_mv(k, p, f"main-path shape N={N} L={L}")
+    kw = dict(n_chars=n_chars, gap_code=gap_code)
+    ms, k = cuda_ms(lambda: ops.match_valid(a, b, **kw))
+    plain_ms, p = cuda_ms(lambda: ref.match_valid_ref(a, b, **kw), reps=1)
+    err = same_mv(k, p, where)
     del k, p
-    print(f"match_valid exact vs plain: N=M={N} L={L} (main-path shape)")
-    # yardstick: one float32 product of the prebuilt one-hot (the match
+    print(f"match_valid exact vs plain at {where}")
+    # yardstick: one float32 product of the prebuilt one-hots (the match
     # counts), never called by the port
-    al = a.long()
-    oh = ((al[:, :, None] == torch.arange(5, device="cuda"))
-          & (al[:, :, None] != 5)).to(torch.float32).reshape(N, -1)
-    library_ms, _ = cuda_ms(lambda: torch.matmul(oh, oh.T))
-    del oh
-    nbytes = 2 * N * L + 2 * 4 * N * N
+    sym = torch.arange(n_chars, device=a.device)
+
+    def onehot(x):
+        xl = x.long()
+        return ((xl[:, :, None] == sym) & (xl[:, :, None] != gap_code)).to(
+            torch.float32).reshape(x.shape[0], -1)
+    oa, ob = onehot(a), onehot(b)
+    library_ms, _ = cuda_ms(lambda: torch.matmul(oa, ob.T))
+    del oa, ob
+    N, L = a.shape
+    M = b.shape[0]
+    nbytes = (N + M) * L + 2 * 4 * N * M
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * N * N * L / INT8_OPS_PER_S * 1e3
+    t_ops = 2 * N * M * L / INT8_OPS_PER_S * 1e3
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 library_ms=library_ms), err
+
+
+def time_mv(N, L):
+    """Kernel 2 at the main-path shape (N x N, width L)."""
+    a, _ = mv_inputs(N, N, L, seed=11)
+    return time_mv_inputs(a, a, f"main-path shape N=M={N} L={L}")
 
 
 # ------------------------------------------------------------- kernels 3, 4
@@ -408,18 +436,22 @@ class Observe:
     call (kernel 1's for each mode and target form), the band-overflow
     fallbacks, and the peak device memory of the path's stages
     (each stage's own peak; the run's peak is the largest of them and of
-    the memory peaks between stages)."""
+    the memory peaks between stages). With ``tree=True`` also kernel 2's
+    largest call in each role and the tree engine's result."""
 
-    def __init__(self):
+    def __init__(self, tree: bool = False):
         from repro_torch.align.engine import AlignEngine
         from repro_torch.core import msa
         from repro_torch.kernels.banded import ops as bd_ops
         from repro_torch.kernels.distance import ops as mv_ops
         from repro_torch.kernels.sw import ops as sw_ops
+        from repro_torch.phylo.engine import TreeEngine
         from repro_torch.search.engine import SearchEngine
         self.mods = (sw_ops, mv_ops, bd_ops)
         self.sw_shapes = []
         self.largest = {}
+        self.mv_largest = {}
+        self.tree_result = None
         self.stage_peaks = {}
         self.running = 0
         self.targets = [
@@ -430,6 +462,9 @@ class Observe:
             (msa, "assemble_center_star", self._stage("assemble")),
             (SearchEngine, "seed_counts", self._stage("search.seed")),
             (AlignEngine, "align_pairs", self._stage("search.rescore"))]
+        if tree:
+            self.targets += [(mv_ops, "match_valid", self._keep_mv),
+                             (TreeEngine, "build", self._keep_tree)]
 
     def _keep(self, name):
         """Wrap a kernel wrapper: keep a copy of the inputs of its largest
@@ -452,6 +487,32 @@ class Observe:
                 return fn(a, b, lens, sub, **kw)
             return wrapped
         return wrap
+
+    def _keep_mv(self, fn):
+        """Wrap kernel 2's wrapper: keep a host copy of the inputs of its
+        largest call in each role (single-column calls, else the span it
+        ran in), off the card so that later runs' peaks do not see it."""
+        from repro_torch.obs import trace
+
+        def wrapped(a, b, **kw):
+            role = ("M=1" if b.shape[0] == 1
+                    else trace.current_span_name() or "-")
+            size = a.shape[0] * b.shape[0] * a.shape[1]
+            if size > self.mv_largest.get(role, (0,))[0]:
+                self.mv_largest[role] = (size, (a.cpu(), b.cpu(),
+                                                dict(kw)))
+            return fn(a, b, **kw)
+        return wrapped
+
+    def _keep_tree(self, fn):
+        """Wrap the tree engine's ``build``: keep its result and its own
+        peak device memory (stage ``tree``)."""
+        build = self._stage("tree")(fn)
+
+        def wrapped(engine, *args, **kw):
+            self.tree_result = build(engine, *args, **kw)
+            return self.tree_result
+        return wrapped
 
     def _stage(self, name):
         import torch
@@ -507,9 +568,9 @@ class Observe:
 
     def peaks(self) -> str:
         """The run's and its stages' peak device memory, in GiB."""
-        stages = ", ".join(f"{k} {v / 2**30:.2f}"
+        stages = ", ".join(f"{k} {v / 2**30:.3f}"
                            for k, v in sorted(self.stage_peaks.items()))
-        return f"{self.peak_gib:.2f} GiB (stage peaks: {stages})"
+        return f"{self.peak_gib:.3f} GiB (stage peaks: {stages})"
 
     def calls(self):
         """((kernel, role), size, inputs) of each kept largest call."""
@@ -552,7 +613,7 @@ MSA_STAGES = ("load", "encode", "center", "map1", "assemble", "write",
 
 
 def run_msa(fam, fasta: Path, out: Path, label: str, flags, backend: str,
-            kernels):
+            kernels, stages=MSA_STAGES):
     """One ``msa_run`` with the launch counts reset just before it; checks
     its outputs and that each of ``kernels`` was launched."""
     from repro_torch.launch import msa_run
@@ -562,7 +623,7 @@ def run_msa(fam, fasta: Path, out: Path, label: str, flags, backend: str,
     with Observe() as obs:
         msa_run.main(["--fasta", str(fasta), "--out", str(out), *flags])
     wall = time.time() - t0
-    print(f"{label} stage seconds: {json.dumps(stage_seconds(MSA_STAGES))} "
+    print(f"{label} stage seconds: {json.dumps(stage_seconds(stages))} "
           f"(wall {wall:.2f} s)")
     print(f"{label} peak device memory: {obs.peaks()}")
     print(f"{label} kernel launches: {json.dumps(obs.launches)}; "
@@ -579,11 +640,11 @@ def run_msa(fam, fasta: Path, out: Path, label: str, flags, backend: str,
     return obs, rows, report
 
 
-def simulate(n_leaves: int):
+def simulate(n_leaves: int, indel: float = 0.001):
     from repro_torch.data import SimConfig, simulate_family
     t0 = time.time()
     fam = simulate_family(SimConfig(n_leaves=n_leaves, root_len=1440,
-                                    branch_sub=0.01, branch_indel=0.001,
+                                    branch_sub=0.01, branch_indel=indel,
                                     seed=1))
     print(f"simulated {n_leaves} Phi_RNA-shaped sequences, lengths "
           f"{min(map(len, fam.seqs))}..{max(map(len, fam.seqs))}, in "
@@ -653,6 +714,173 @@ def hold_path_calls(runs):
                   f"{json.dumps(t)}")
         del obs.largest
     return err, timed
+
+
+# --------------------------------------------------------------- tree paths
+
+TREE_STAGES = ("load", "tree.distance", "tree.nj", "tree.medoids",
+               "tree.assign", "tree.cluster_nj", "tree.stitch", "tree",
+               "loglik", "write", "tree_run")
+
+
+def split_hashes(children, root, n, keys):
+    """The non-trivial splits of a tree as 64-bit hashes: a clade hashes
+    to the XOR of its leaves' random keys, a split to the smaller of its
+    two sides' hashes. Node ids must be topological (children below their
+    parent), as NJ, the stitch and the simulator number them."""
+    children = np.asarray(children)
+    h = np.zeros(children.shape[0], np.uint64)
+    size = np.zeros(children.shape[0], np.int64)
+    h[:n], size[:n] = keys, 1
+    total = np.bitwise_xor.reduce(keys)
+    for node in range(n, children.shape[0]):
+        c0, c1 = children[node]
+        if c0 >= 0:
+            h[node] = h[c0] ^ h[c1]
+            size[node] = size[c0] + size[c1]
+    inner = [v for v in range(n, children.shape[0])
+             if v != root and 1 < size[v] < n - 1]
+    return {min(int(h[v]), int(total ^ h[v])) for v in inner}
+
+
+def normalized_rf(tree, true_tree, n) -> float:
+    """Robinson-Foulds distance between two trees over leaves 0..n-1,
+    over its most, 2 (n - 3)."""
+    keys = np.random.default_rng(0).integers(1, 2**63, n, dtype=np.uint64)
+    a = split_hashes(tree[0], tree[1], n, keys)
+    b = split_hashes(true_tree[0], true_tree[1], n, keys)
+    return len(a ^ b) / (2 * max(n - 3, 1))
+
+
+def run_tree(fasta: Path, out: Path, label: str, flags, n: int, true_tree):
+    """One ``tree_run`` with the launch counts reset just before it; checks
+    its tree and report and that kernel 2 was launched; returns (observer,
+    report)."""
+    from repro_torch.launch import tree_run
+    from repro_torch.obs import trace
+    trace.TRACER.clear()
+    t0 = time.time()
+    with Observe(tree=True) as obs:
+        tree_run.main(["--fasta", str(fasta), "--out", str(out), *flags])
+    wall = time.time() - t0
+    report = json.loads((out / "report.json").read_text())
+    res = obs.tree_result
+    nwk = (out / "tree.nwk").read_text().strip()
+    if (report["n_sequences"] != n or res.n_leaves != n
+            or nwk.count(",") != n - 1 or not nwk.endswith(";")):
+        fail(f"tree {label}: the tree does not have {n} leaves")
+    ll = report.get("log_likelihood")
+    if "--tree-ll" in flags and not (ll is not None and math.isfinite(ll)):
+        fail(f"tree {label}: log-likelihood {ll} is not finite")
+    if obs.launches["match_valid"] <= 0:
+        fail(f"kernel match_valid was not launched on the tree {label}")
+    nrf = normalized_rf((res.children, res.root), true_tree, n)
+    print(f"tree {label}: backend {report['backend']}, stage seconds "
+          f"{json.dumps(stage_seconds(TREE_STAGES))} (wall {wall:.2f} s), "
+          f"peak device memory {obs.peaks()}, match_valid "
+          f"launches {obs.launches['match_valid']}, logL {ll}, normalized "
+          f"RF vs the simulated tree {nrf:.4f}, tile_stats "
+          f"{json.dumps(report['tile_stats'])}")
+    return obs, report
+
+
+def same_tree(a, b, what: str) -> None:
+    """Two tree runs gave bitwise-equal trees and equal Newick files."""
+    (obs_a, out_a), (obs_b, out_b) = a, b
+    ra, rb = obs_a.tree_result, obs_b.tree_result
+    if not (np.array_equal(ra.children, rb.children)
+            and np.array_equal(ra.blen, rb.blen) and ra.root == rb.root):
+        fail(f"{what}: the trees differ")
+    if (out_a / "tree.nwk").read_bytes() != (out_b / "tree.nwk").read_bytes():
+        fail(f"{what}: the Newick files differ")
+    print(f"{what}: children, branch lengths and Newick bitwise equal")
+
+
+def within_strip(report, n: int, label: str) -> None:
+    peak = report["tile_stats"]["peak_resident_bytes"]
+    if report["backend"] != "tiled" or not 0 < peak <= 128 * n * 4:
+        fail(f"tree {label}: backend {report['backend']}, resident peak "
+             f"{peak} bytes against one strip of {128 * n * 4}")
+
+
+def hold_tree_calls(runs) -> float:
+    """Kernel 2 on each tree run's largest call, one single-column call
+    and one per-cluster square: held exact against its plain version and
+    timed. Returns the largest count error."""
+    err = 0.0
+    for label, obs in runs:
+        calls = obs.mv_largest
+        top = max(calls, key=lambda r: calls[r][0])
+        picks = [(f"largest call ({top})", calls[top])]
+        picks += [(what, calls[role]) for what, role in
+                  (("single column", "M=1"),
+                   ("per-cluster square", "tree.cluster_nj"))
+                  if role in calls and role != top]
+        for what, (_, (a, b, kw)) in picks:
+            a, b = a.cuda(), b.cuda()
+            t, e = time_mv_inputs(a, b, f"the tree {label}'s {what} "
+                                  f"{tuple(a.shape)} x {tuple(b.shape)}",
+                                  **kw)
+            err = max(err, e)
+            print(f"match_valid {what} on the tree {label}: "
+                  f"{tuple(a.shape)} x {tuple(b.shape)}: {json.dumps(t)}")
+        obs.mv_largest = {}
+    return err
+
+
+def tree_phases(fam, fasta: Path, work: Path, n_big: int = N_BIG,
+                route: str = "cuda") -> float:
+    """Phases 10-12: the tree backends on ``fam``'s alignment from phase 6
+    and on ``n_big`` simulated aligned rows, then kernel 2's tree calls
+    held against its plain version. Returns the largest count error."""
+    from repro_torch.data import write_fasta
+    n = len(fam.names)
+    # the tree backends at 4,096, on phase 6's alignment
+    aligned = work / "out" / "aligned.fasta"
+    truth = (fam.children, fam.root)
+    tree_runs = {}
+    for label, flags in (("dense", ["--backend", "dense"]),
+                         ("cluster", ["--backend", "cluster"]),
+                         ("tiled", ["--backend", "tiled",
+                                    "--row-block", "128"])):
+        out = work / f"tree_{label}"
+        tree_runs[f"{label} {n}"] = (run_tree(
+            aligned, out, f"{label} {n}", [*flags, "--tree-ll"],
+            n, truth)[0], out)
+    within_strip(json.loads((work / "tree_tiled" / "report.json")
+                            .read_text()), n, f"tiled {n}")
+    same_tree(tree_runs[f"cluster {n}"], tree_runs[f"tiled {n}"],
+              f"cluster and tiled at {n}")
+    _, _, treport = run_msa(
+        fam, fasta, work / "out_tree", "main path --tree tiled --tree-ll",
+        ["--tree", "tiled", "--tree-ll"], route,
+        ("gotoh_forward", "match_valid"),
+        stages=MSA_STAGES + TREE_STAGES[3:7] + ("loglik",))
+    if treport["tree_backend"] != "tiled" or not math.isfinite(
+            treport["log_likelihood"]):
+        fail(f"msa_run --tree tiled --tree-ll: {treport}")
+    print(f"msa_run --tree tiled --tree-ll: logL "
+          f"{treport['log_likelihood']}, tile_stats "
+          f"{json.dumps(treport['tile_stats'])}")
+
+    # the tree backends at n_big aligned rows (no indels: no MSA run)
+    big = simulate(n_big, indel=0.0)
+    big_fa = work / f"phi_rna_{n_big}_aligned.fa"
+    write_fasta(big_fa, big.names, big.seqs)
+    big_truth = (big.children, big.root)
+    del big
+    for label, flags in (("auto", ["--backend", "auto"]),
+                         ("cluster", ["--backend", "cluster"])):
+        out = work / f"tree_{label}_{n_big}"
+        obs, report = run_tree(big_fa, out, f"{label} {n_big}", flags,
+                               n_big, big_truth)
+        tree_runs[f"{label} {n_big}"] = (obs, out)
+        if label == "auto":
+            within_strip(report, n_big, f"auto {n_big}")
+    same_tree(tree_runs[f"auto {n_big}"], tree_runs[f"cluster {n_big}"],
+              f"auto (tiled) and cluster at {n_big}")
+    return hold_tree_calls((label, obs)
+                           for label, (obs, _) in tree_runs.items())
 
 
 def main() -> int:
@@ -746,6 +974,8 @@ def main() -> int:
     mv_err = max(mv_err, e)
     print(f"match_valid at main-path shape N={N_SEQS} L={width}: "
           f"{json.dumps(mv)}")
+
+    mv_err = max(mv_err, tree_phases(fam, fasta, work))
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

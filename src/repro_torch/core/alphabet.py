@@ -83,6 +83,19 @@ class Alphabet:
         unknown = self.unknown_code
         return np.array([lut.get(c, unknown) for c in seq.upper()], dtype=np.int8)
 
+    def encode_aligned_rows(self, seqs) -> np.ndarray:
+        """(N, L) int8 rows of equal-width ASCII aligned strings, coded as
+        ``encode_aligned`` codes each one, through one byte lookup table."""
+        lut = np.full(256, self.unknown_code, np.int8)
+        for c, code in self.char_to_code.items():
+            lut[ord(c)] = lut[ord(c.lower())] = code
+        lut[ord("-")] = self.gap_code
+        width = len(seqs[0]) if len(seqs) else 0
+        if any(len(s) != width for s in seqs):
+            raise ValueError("rows of different widths")
+        buf = np.frombuffer("".join(seqs).encode("ascii"), np.uint8)
+        return lut[buf].reshape(len(seqs), width)
+
     def decode(self, codes) -> str:
         table = self.chars + "-"
         return "".join(table[int(c)] for c in np.asarray(codes))

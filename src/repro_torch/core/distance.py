@@ -22,6 +22,12 @@ def match_valid_counts(msa, other=None, *, gap_code: int, n_chars: int):
     return match.to(torch.float32), valid.to(torch.float32)
 
 
+def p_distance(msa, *, gap_code: int, n_chars: int):
+    match, valid = match_valid_counts(msa, gap_code=gap_code, n_chars=n_chars)
+    p = 1.0 - match / torch.clamp(valid, min=1.0)
+    return torch.where(valid > 0, p, torch.full_like(p, 0.75))  # no overlap
+
+
 def jc69_distance(p):
     """Jukes-Cantor correction d = -3/4 ln(1 - 4/3 p), clipped to stay finite."""
     x = torch.clamp(1.0 - 4.0 / 3.0 * p, 1e-6, 1.0)
@@ -40,3 +46,11 @@ def distance_matrix(msa, *, gap_code: int, n_chars: int, correct: bool = True):
     d = counts_to_distance(match, valid, correct=correct)
     d = (d + d.T) / 2.0
     return d * (1.0 - torch.eye(d.shape[0], device=d.device))
+
+
+def cross_distance(msa, other, *, gap_code: int, n_chars: int,
+                   correct: bool = True):
+    """(N, M) distances between two row sets (medoid assignment, tiles)."""
+    match, valid = match_valid_counts(msa, other, gap_code=gap_code,
+                                      n_chars=n_chars)
+    return counts_to_distance(match, valid, correct=correct)

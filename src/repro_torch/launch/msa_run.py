@@ -9,10 +9,12 @@ The same flags and outputs as ``repro.launch.msa_run`` (``aligned.fasta``,
 ``--device cpu``, on the plain PyTorch path. ``report["backend"]`` names
 the DP route that ran (``cuda`` = the hand-written kernels, ``torch`` =
 their plain versions; ``-banded`` for ``--backend banded|banded-pallas``,
-which run the banded forward kernel with ``--band`` columns). Flags of
-the reference whose path is not ported yet raise an error naming the
-ROADMAP.md item: ``--dist``, ``--tree`` other than ``nj``/``none``,
-``--tree-ll``.
+which run the banded forward kernel with ``--band`` columns). ``--tree``
+picks the ``repro_torch.phylo.TreeEngine`` backend (``nj`` = dense,
+``cluster``, ``tiled``, ``auto``); ``--tree-ll`` adds the tree's JC69
+log-likelihood to the report. Flags of the reference whose path is not
+ported yet raise an error naming the ROADMAP.md item: ``--dist`` and
+``--tree ml``.
 """
 from __future__ import annotations
 
@@ -24,10 +26,8 @@ from pathlib import Path
 _NOT_PORTED = {
     "dist": "--dist is not ported yet (ROADMAP.md §1 item 11, the "
             "distributed runtime)",
-    "tree": "--tree {} is not ported yet (ROADMAP.md §1 item 8, tree "
-            "backends; item 9 for ml)",
-    "tree_ll": "--tree-ll is not ported yet (ROADMAP.md §1 item 9, "
-               "likelihood)",
+    "tree": "--tree ml is not ported yet (ROADMAP.md §1 item 9, "
+            "likelihood and ML)",
 }
 
 
@@ -44,13 +44,14 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["dna", "rna", "protein"])
     ap.add_argument("--tree", default="nj",
                     choices=["nj", "cluster", "tiled", "auto", "ml", "none"],
-                    help="tree backend (only nj and none are ported)")
+                    help="tree backend (repro_torch.phylo registry; nj = "
+                         "dense; ml is not ported)")
     ap.add_argument("--cluster-threshold", type=int, default=64,
                     help="N at or below which cluster/auto tree backends "
                          "fall back to dense NJ")
     ap.add_argument("--tree-ll", action="store_true",
-                    help="record the tree's JC69 log-likelihood (not "
-                         "ported)")
+                    help="record the tree's JC69 log-likelihood in the "
+                         "report (DNA/RNA only)")
     ap.add_argument("--k", type=int, default=11)
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "jnp", "pallas", "banded",
@@ -76,10 +77,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.dist:
         parser.error(_NOT_PORTED["dist"])
-    if args.tree not in ("nj", "none"):
-        parser.error(_NOT_PORTED["tree"].format(args.tree))
-    if args.tree_ll:
-        parser.error(_NOT_PORTED["tree_ll"])
+    if args.tree == "ml":
+        parser.error(_NOT_PORTED["tree"])
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
@@ -96,7 +95,7 @@ def _run(args):
 
         from ..align import resolve_backend
         from ..core import alphabet as ab
-        from ..core import sp_score
+        from ..core import likelihood, sp_score
         from ..core.msa import MSAConfig, center_star_msa, decode_msa
         from ..data import read_fasta, write_fasta
         names, seqs = read_fasta(args.fasta)
@@ -131,15 +130,22 @@ def _run(args):
         t0 = time.time()
         engine = TreeEngine(gap_code=alpha.gap_code, n_chars=alpha.n_chars,
                             correct=args.alphabet != "protein",
-                            backend="dense",
+                            backend={"nj": "dense"}.get(args.tree, args.tree),
                             cluster_threshold=args.cluster_threshold,
                             device=args.device)
-        tree_res = engine.build(res.msa)
+        tree_res = engine.build(msa)
         report["tree_seconds"] = time.time() - t0
         report["tree_backend"] = tree_res.backend
+        if tree_res.tile_stats is not None:
+            report["tile_stats"] = tree_res.tile_stats
         nwk = tree_res.newick(names)
         with _trace.span("write", artifact="tree.nwk"):
             (out / "tree.nwk").write_text(nwk + "\n")
+        if args.tree_ll and args.alphabet != "protein":
+            with _trace.span("loglik"):
+                report["log_likelihood"] = float(likelihood.log_likelihood(
+                    msa, tree_res.children, tree_res.blen, tree_res.root,
+                    gap_code=alpha.gap_code))
 
     with _trace.span("report"):
         (out / "report.json").write_text(json.dumps(report, indent=1))

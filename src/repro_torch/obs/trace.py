@@ -38,7 +38,8 @@ from . import metrics as _metrics
 
 __all__ = [
     "SpanRecord", "Tracer", "TRACER", "span", "request_trace",
-    "current_trace_id", "new_trace_id", "enable_profiler_annotations",
+    "current_trace_id", "current_span_name", "new_trace_id",
+    "enable_profiler_annotations",
     "chrome_coverage",
 ]
 
@@ -67,6 +68,12 @@ def new_trace_id() -> str:
 
 def current_trace_id() -> Optional[str]:
     return getattr(_tls, "trace_id", None)
+
+
+def current_span_name() -> Optional[str]:
+    """Name of the innermost span open on this thread, if any."""
+    stack = getattr(_tls, "stack", None)
+    return stack[-1].name if stack else None
 
 
 def _stack() -> List["SpanRecord"]:

@@ -1,26 +1,47 @@
-"""TreeEngine: the phylogeny engine of the port.
+"""TreeEngine: the backend-dispatching phylogeny engine of the port.
 
-Only the ``dense`` backend with ``refine="none"`` is ported: the (N, N)
-JC69 distance matrix (counts from the match/valid kernel on the card)
-and monolithic neighbor joining on the device. ``auto`` resolves to
-``dense`` at or below ``cluster_threshold``; every other backend and
-refine mode raises ``NotImplementedError`` naming its ROADMAP.md item.
+One entry point for every tree path of the port — ``launch/msa_run.py
+--tree`` and the aligned-FASTA launcher ``launch/tree_run.py``.
+
+Backends (``TREE_BACKENDS``):
+
+  dense     (N, N) matrix + monolithic NJ on the device — exact
+  tiled     streamed HPTree pipeline over distance tiles
+            (``repro_torch.phylo.pipeline``) — resident distance storage
+            <= one (row_block, N) strip; resolves to ``tiled-exact``
+            (tile-assembled matrix + monolithic NJ, still within budget)
+            when N <= row_block
+  cluster   the dense HPTree cluster-merge (``core.cluster``) — scalable
+            compute, but still materializes the (0.1 N)^2 sample matrix
+  auto      dense at or below ``cluster_threshold``; tiled above
+            ``AUTO_TILED_N``; cluster otherwise
+
+Every distance count comes from the match/valid kernel on the card (its
+plain version with ``device="cpu"``). Not ported yet, and raising
+``NotImplementedError`` naming their ROADMAP.md item: ``refine="ml"`` and
+``"search"`` (item 9) and a ``mesh`` (item 11).
+
+``build`` returns a ``PhyloResult``: the tree arrays, the effective backend
+that ran, timings, and for the tiled backends the tile accountant's
+memory stats.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core import cluster as cluster_mod
 from ..core import distance as dist_mod
 from ..core import nj as nj_mod
 from ..core import treeio
 from ..device import resolve_device, sync
 from ..obs import metrics as _obs
 from ..obs import trace as _trace
+from . import pipeline, tiles
 
 _M_BUILDS = _obs.counter("repro_tree_builds_total",
                          "tree reconstructions by effective backend",
@@ -28,8 +49,11 @@ _M_BUILDS = _obs.counter("repro_tree_builds_total",
 
 TREE_BACKENDS = ("auto", "dense", "tiled", "cluster")
 REFINE_MODES = ("none", "ml", "search")
-_TODO = "ROADMAP.md §1 item 8 (tree backends)"
 _TODO_REFINE = "ROADMAP.md §1 item 9 (likelihood and ML)"
+
+# above this N, `auto` prefers the tiled pipeline even on one device: the
+# dense cluster path's (0.1 N)^2 sample matrix starts to dominate memory
+AUTO_TILED_N = 4096
 
 
 class PhyloResult(NamedTuple):
@@ -37,25 +61,40 @@ class PhyloResult(NamedTuple):
     blen: np.ndarray         # (2N-1, 2) float32 branch lengths
     root: int
     n_leaves: int
-    backend: str             # effective backend that ran
+    backend: str             # effective backend that ran (see resolve)
     requested: str           # what the caller asked for
     timings: Dict[str, float]
+    tile_stats: Optional[dict] = None   # accountant stats, tiled backends
 
     def newick(self, names=None) -> str:
         return treeio.to_newick(self.children, self.blen, self.root, names)
 
 
-def resolve_tree_backend(backend: str, *, n: int,
-                         cluster_threshold: int = 64) -> str:
-    """Map a requested backend + problem size to the one that runs."""
+def resolve_tree_backend(backend: str, *, n: int, mesh=None,
+                         cluster_threshold: int = 64,
+                         row_block: int = 128) -> str:
+    """Map a requested backend + problem geometry to the one that runs.
+
+    ``cluster`` drops to ``dense`` at or below ``cluster_threshold``;
+    ``tiled`` becomes ``tiled-exact`` when the whole matrix fits one
+    strip. Only ``mesh=None`` (one device) is ported.
+    """
     if backend not in TREE_BACKENDS:
         raise ValueError(f"unknown tree backend {backend!r}; "
                          f"expected one of {TREE_BACKENDS}")
-    if backend == "dense" or (backend in ("auto", "cluster")
-                              and n <= cluster_threshold):
+    if mesh is not None:
+        raise NotImplementedError(tiles.MESH_TODO)
+    if backend == "auto":
+        if n <= cluster_threshold:
+            return "dense"
+        if n > AUTO_TILED_N:
+            return "tiled" if n > row_block else "tiled-exact"
+        return "cluster"
+    if backend == "cluster" and n <= cluster_threshold:
         return "dense"
-    raise NotImplementedError(
-        f"tree backend {backend!r} at n={n} is not ported yet ({_TODO})")
+    if backend == "tiled" and n <= row_block:
+        return "tiled-exact"
+    return backend
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,36 +106,102 @@ class TreeEngine:
     correct: bool = True             # JC69 correction (off for protein)
     backend: str = "auto"
     cluster_threshold: int = 64
+    row_block: int = 128
+    col_block: Optional[int] = None
+    target_cluster: int = 64
+    sample_frac: float = 0.10
+    seed: int = 0
+    mesh: Optional[object] = None    # not ported: must be None
     refine: str = "none"
     device: str = "cuda"
 
-    def build(self, msa) -> PhyloResult:
-        """Reconstruct a tree from aligned (N, L) int8 rows."""
+    def cluster_cfg(self) -> cluster_mod.ClusterConfig:
+        return cluster_mod.ClusterConfig(sample_frac=self.sample_frac,
+                                         target_cluster=self.target_cluster,
+                                         seed=self.seed, correct=self.correct)
+
+    def tile_ctx(self, accountant: Optional[tiles.TileAccountant] = None
+                 ) -> tiles.TileContext:
+        return tiles.TileContext(gap_code=self.gap_code, n_chars=self.n_chars,
+                                 correct=self.correct,
+                                 row_block=self.row_block,
+                                 col_block=self.col_block, mesh=self.mesh,
+                                 accountant=accountant, device=self.device)
+
+    def resolve(self, n: int) -> str:
+        return resolve_tree_backend(self.backend, n=n, mesh=self.mesh,
+                                    cluster_threshold=self.cluster_threshold,
+                                    row_block=self.row_block)
+
+    def build(self, msa, *,
+              accountant: Optional[tiles.TileAccountant] = None,
+              cache: Optional[dict] = None,
+              cache_key: Optional[str] = None) -> PhyloResult:
+        """Reconstruct a tree from aligned (N, L) int8 rows.
+
+        With a mutable ``cache`` and a ``cache_key``, a hit returns the
+        stored ``PhyloResult`` without touching the distance machinery and
+        a miss stores the new result under that key; the caller owns the
+        mapping.
+        """
         if self.refine not in REFINE_MODES:
             raise ValueError(f"unknown refine mode {self.refine!r}; "
                              f"expected one of {REFINE_MODES}")
         if self.refine != "none":
             raise NotImplementedError(
                 f"refine={self.refine!r} is not ported yet ({_TODO_REFINE})")
+        if cache is not None and cache_key is not None and cache_key in cache:
+            return cache[cache_key]
         dev = resolve_device(self.device)
-        msa_t = torch.as_tensor(np.asarray(msa), device=dev)
+        if not isinstance(msa, torch.Tensor):
+            msa = torch.from_numpy(np.array(msa))
+        msa_t = msa.to(dev)
         n = msa_t.shape[0]
         if n < 2:
             raise ValueError(f"need >= 2 sequences for a tree, got {n}")
-        eff = resolve_tree_backend(self.backend, n=n,
-                                   cluster_threshold=self.cluster_threshold)
+        eff = self.resolve(n)
+        acct = accountant or tiles.TileAccountant()
+
         timings: Dict[str, float] = {}
         t0 = time.perf_counter()
         with _trace.span("tree", backend=eff, n=n):
-            with _trace.span("tree.distance", backend=eff, n=n):
-                D = dist_mod.distance_matrix(msa_t, gap_code=self.gap_code,
-                                             n_chars=self.n_chars,
-                                             correct=self.correct)
-                sync(dev)
-            with _trace.span("tree.nj", n=n):
-                children, blen, root = nj_mod.host_tree(
-                    nj_mod.neighbor_joining(D, n))
+            if eff in ("dense", "tiled-exact"):
+                with _trace.span("tree.distance", backend=eff, n=n):
+                    if eff == "dense":
+                        D = dist_mod.distance_matrix(
+                            msa_t, gap_code=self.gap_code,
+                            n_chars=self.n_chars, correct=self.correct)
+                        sync(dev)
+                    else:
+                        ctx = self.tile_ctx(acct)
+                        D_host = ctx.full(msa_t)
+                        D = torch.from_numpy(D_host).to(dev)
+                        ctx.release(D_host)
+                with _trace.span("tree.nj", n=n):
+                    children, blen, root = nj_mod.host_tree(
+                        nj_mod.neighbor_joining(D, n))
+            else:
+                # the HPTree stages run under the distance span, with one
+                # child span per stage
+                with _trace.span("tree.distance", backend=eff, n=n):
+                    if eff == "tiled":
+                        cp = pipeline.tiled_phylogeny(
+                            msa_t, tiles=self.tile_ctx(acct),
+                            cfg=self.cluster_cfg())
+                    else:   # cluster
+                        cp = cluster_mod.cluster_phylogeny(
+                            msa_t, gap_code=self.gap_code,
+                            n_chars=self.n_chars, cfg=self.cluster_cfg())
+                children, blen, root = cp.children, cp.blen, cp.root
         timings["total_seconds"] = time.perf_counter() - t0
+        tile_stats = None
+        if eff.startswith("tiled"):
+            tile_stats = dict(acct.stats(),
+                              row_block_bytes=self.row_block * n * 4)
         _M_BUILDS.labels(backend=eff).inc()
-        return PhyloResult(children, blen, root, n, eff, self.backend,
-                           timings)
+        result = PhyloResult(np.asarray(children), np.asarray(blen),
+                             int(root), n, eff, self.backend, timings,
+                             tile_stats)
+        if cache is not None and cache_key is not None:
+            cache[cache_key] = result
+        return result

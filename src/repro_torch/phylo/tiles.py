@@ -1,0 +1,254 @@
+"""Tiled distance-matrix engine: (row-block x column-block) JC69 tiles.
+
+The phylogeny stage's hot input is the (N, N) JC69 distance matrix. Dense
+``core.distance.distance_matrix`` materializes all of it — the scaling
+cliff this module removes. ``TileContext`` computes the same matrix as
+independent tiles and exposes *streaming block-reductions*, so the HPTree
+pipeline (``repro_torch.phylo.pipeline``) never holds more than one tile
+row-block strip of distance storage:
+
+  ``strips``          generator of (row_block, M) strips, one resident at a
+                      time
+  ``row_sums``        streamed row-sum reduction (medoid seeding)
+  ``greedy_k_center`` streamed farthest-point medoid selection — identical
+                      picks to ``core.cluster.farthest_point_medoids`` with
+                      no (m, m) sample matrix
+  ``nearest_assign``  each row's nearest anchor and distance, strip by
+                      strip, with no (N, k) matrix (the pipeline's
+                      assignment; the reference's ``nearest`` returns the
+                      (N, k) matrix itself)
+  ``full``            assemble the whole matrix tile by tile — the parity /
+                      small-N-exact path, not the production one
+
+Every tile's counts come from the match/valid kernel when the context's
+device is the card, and from its plain version on the CPU. The counts are
+exact integers, so every tile is *bitwise equal* to the corresponding
+dense sub-block whatever the tiling. The rows stay on the device; each
+tile comes back to the host, where the pipeline's discrete choices run.
+
+``TileAccountant`` tracks resident distance bytes exactly as the reference
+counts them; ``peak_resident_bytes <= row_block * N * 4`` is the bound the
+tiled backend keeps.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import distance as dist_mod
+from ..device import resolve_device
+from ..obs import metrics as _obs
+
+_G_RESIDENT = _obs.gauge("repro_tile_resident_bytes",
+                         "distance bytes currently resident (last accountant)")
+_C_TILES = _obs.counter("repro_tiles_total", "distance tiles materialized")
+_C_TILE_BYTES = _obs.counter("repro_tile_bytes_total",
+                             "distance bytes materialized, cumulative")
+
+MESH_TODO = ("a mesh is not ported yet (ROADMAP.md §1 item 11, the "
+             "distributed runtime)")
+
+
+class TileAccountant:
+    """Byte accounting for resident distance storage.
+
+    Every distance buffer the tiled pipeline materializes passes through
+    ``alloc``/``free``; ``peak_resident_bytes`` is the memory bound the
+    tiled backend advertises (one row-block strip), reported by
+    ``launch/tree_run.py``.
+    """
+
+    def __init__(self):
+        self.resident = 0
+        self.peak = 0
+        self.n_tiles = 0
+        self.total_bytes = 0
+
+    def alloc(self, nbytes: int) -> int:
+        nbytes = int(nbytes)
+        self.resident += nbytes
+        self.peak = max(self.peak, self.resident)
+        self.n_tiles += 1
+        self.total_bytes += nbytes
+        _C_TILES.inc()
+        _C_TILE_BYTES.inc(nbytes)
+        _G_RESIDENT.set(self.resident)
+        return nbytes
+
+    def free(self, nbytes: int) -> None:
+        self.resident -= int(nbytes)
+        _G_RESIDENT.set(self.resident)
+
+    def stats(self) -> dict:
+        return {"peak_resident_bytes": self.peak,
+                "n_tiles": self.n_tiles,
+                "total_tile_bytes": self.total_bytes}
+
+
+@dataclasses.dataclass
+class TileContext:
+    """One configured tile engine (alphabet + tile geometry + device)."""
+
+    gap_code: int
+    n_chars: int
+    correct: bool = True           # JC69 correction (off for protein)
+    row_block: int = 128
+    col_block: Optional[int] = None   # ``full`` only; defaults to row_block
+    mesh: Optional[object] = None     # not ported: must be None
+    accountant: Optional[TileAccountant] = None
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError(MESH_TODO)
+        self.device = resolve_device(self.device)
+        if self.accountant is None:
+            self.accountant = TileAccountant()
+
+    def rows(self, msa) -> torch.Tensor:
+        """``msa`` (host array or tensor) as int8 rows on the device."""
+        if not isinstance(msa, torch.Tensor):
+            msa = torch.from_numpy(np.array(msa))
+        return msa.to(self.device)
+
+    # ------------------------------------------------------------ accounting
+
+    def track(self, arr: np.ndarray) -> np.ndarray:
+        self.accountant.alloc(arr.nbytes)
+        return arr
+
+    def release(self, arr: np.ndarray) -> None:
+        self.accountant.free(arr.nbytes)
+
+    # ------------------------------------------------------------ tile math
+
+    def block(self, rows, cols) -> np.ndarray:
+        """One (r, c) distance tile between two row sets."""
+        d = dist_mod.cross_distance(self.rows(rows), self.rows(cols),
+                                    gap_code=self.gap_code,
+                                    n_chars=self.n_chars,
+                                    correct=self.correct)
+        return d.cpu().numpy()
+
+    def square(self, rows, pad_to: Optional[int] = None) -> np.ndarray:
+        """Small dense symmetric matrix (per-cluster / skeleton blocks).
+
+        ``pad_to`` pads the row count with gap rows, so every per-cluster
+        call has one shape, and crops the result. Real-row entries are
+        unaffected (pairwise counts are row-independent).
+        """
+        rows = self.rows(rows)
+        n = rows.shape[0]
+        if pad_to is not None and n < pad_to:
+            pad = torch.full((pad_to - n, rows.shape[1]), self.gap_code,
+                             dtype=rows.dtype, device=rows.device)
+            rows = torch.cat([rows, pad], dim=0)
+        d = dist_mod.distance_matrix(rows, gap_code=self.gap_code,
+                                     n_chars=self.n_chars,
+                                     correct=self.correct)
+        d = d.cpu().numpy()
+        return d[:n, :n] if pad_to is not None else d
+
+    # ------------------------------------------------------------- streaming
+
+    def strips(self, msa, cols=None) -> Iterator[Tuple[int, int, np.ndarray]]:
+        """Yield ``(start, stop, strip)`` row-block strips of the cross
+        distance between ``msa`` and ``cols`` (default: ``msa`` itself, i.e.
+        one row-block of the (N, N) matrix per step).
+
+        Exactly one strip is resident at a time (alloc on yield, free on
+        resume); each is counted at the full ``row_block`` height, as the
+        reference counts the strip it pads to that height.
+        """
+        msa = self.rows(msa)
+        cols_t = msa if cols is None else self.rows(cols)
+        n, m = msa.shape[0], cols_t.shape[0]
+        rb = self.row_block
+        for start in range(0, n, rb):
+            stop = min(start + rb, n)
+            strip = self.block(msa[start:stop], cols_t)
+            nbytes = self.accountant.alloc(rb * m * 4)
+            try:
+                yield start, stop, strip
+            finally:
+                self.accountant.free(nbytes)
+
+    def row_sums(self, msa) -> np.ndarray:
+        """Streamed row-sum reduction over the implicit (N, N) matrix."""
+        msa = self.rows(msa)
+        out = np.zeros((msa.shape[0],), np.float32)
+        for start, stop, strip in self.strips(msa):
+            out[start:stop] = strip.sum(axis=1)
+        return out
+
+    def greedy_k_center(self, msa, k: int) -> np.ndarray:
+        """Streamed farthest-point medoid selection.
+
+        Same picks as ``core.cluster.farthest_point_medoids`` on the dense
+        sample matrix: the seed is the max-row-sum point (streamed), then
+        each round adds the point farthest from the chosen set, maintaining
+        the (m,) min-distance vector with one single-column tile per round.
+        """
+        msa = self.rows(msa)
+        m = msa.shape[0]
+        first = int(np.argmax(self.row_sums(msa)))
+        chosen = [first]
+        mind = self.block(msa, msa[first: first + 1])[:, 0]
+        for _ in range(1, min(k, m)):
+            nxt = int(np.argmax(mind))
+            chosen.append(nxt)
+            mind = np.minimum(mind, self.block(msa, msa[nxt: nxt + 1])[:, 0])
+        return np.asarray(chosen)
+
+    def nearest_assign(self, msa, anchors) -> Tuple[np.ndarray, np.ndarray]:
+        """Every row's nearest anchor and its distance to it, strip by
+        strip: ``(assign (N,), own (N,) float32)``, as ``np.argmin`` over
+        the rows of the (N, k) distance matrix picks them, with no such
+        matrix resident."""
+        msa = self.rows(msa)
+        anchors = self.rows(anchors)
+        n = msa.shape[0]
+        assign = np.empty((n,), np.int64)
+        own = np.empty((n,), np.float32)
+        for start, stop, strip in self.strips(msa, cols=anchors):
+            a = np.argmin(strip, axis=1)
+            assign[start:stop] = a
+            own[start:stop] = strip[np.arange(stop - start), a]
+        return assign, own
+
+    def sorted_rows(self, msa, anchors, idx) -> np.ndarray:
+        """``np.argsort`` of the distance rows of the rows ``idx`` (at most
+        ``row_block``) to ``anchors``: one strip, resident while sorted."""
+        rows = self.rows(msa)[torch.as_tensor(np.asarray(idx),
+                                              device=self.device)]
+        nbytes = self.accountant.alloc(self.row_block * anchors.shape[0] * 4)
+        try:
+            return np.argsort(self.block(rows, anchors), axis=1)
+        finally:
+            self.accountant.free(nbytes)
+
+    # ------------------------------------------------------------- assembly
+
+    def full(self, msa) -> np.ndarray:
+        """Assemble the complete (N, N) matrix from tiles.
+
+        Parity path plus the tiled backend's small-N exact route
+        (N <= row_block, where the whole matrix is one strip). Bitwise
+        equal to ``core.distance.distance_matrix``.
+        """
+        msa = self.rows(msa)
+        n = msa.shape[0]
+        cb = self.col_block or self.row_block
+        out = self.track(np.zeros((n, n), np.float32))
+        for rs in range(0, n, self.row_block):
+            re_ = min(rs + self.row_block, n)
+            for cs in range(0, n, cb):
+                ce = min(cs + cb, n)
+                nbytes = self.accountant.alloc((re_ - rs) * (ce - cs) * 4)
+                out[rs:re_, cs:ce] = self.block(msa[rs:re_], msa[cs:ce])
+                self.accountant.free(nbytes)
+        np.fill_diagonal(out, 0.0)
+        return out

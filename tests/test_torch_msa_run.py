@@ -102,8 +102,9 @@ def test_msa_config_entry_points_default_to_the_card(entry, monkeypatch):
     assert getattr(tmsa.MSAConfig(), entry)("cpu") is not None
 
 
-@pytest.mark.parametrize("flags", [["--dist"], ["--tree", "cluster"],
-                                   ["--tree", "ml"], ["--tree-ll"]])
+@pytest.mark.parametrize("flags", [["--dist"], ["--dist", "--tree", "tiled"],
+                                   ["--tree", "ml"],
+                                   ["--tree", "ml", "--tree-ll"]])
 def test_unported_flags_name_the_roadmap(runs, flags, capsys):
     d, _ = runs
     with pytest.raises(SystemExit):

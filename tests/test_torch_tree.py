@@ -92,9 +92,11 @@ def test_treeio_copy_matches_reference():
 
 def test_unported_tree_paths_raise():
     msa = _msa(7, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TreeEngine(gap_code=5, n_chars=5, backend="tiled",
-                   device="cpu").build(msa)
+    assert TreeEngine(gap_code=5, n_chars=5, backend="tiled",
+                      device="cpu").build(msa).backend == "tiled-exact"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TreeEngine(gap_code=5, n_chars=5, refine="ml",
+                   device="cpu").build(msa)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        TreeEngine(gap_code=5, n_chars=5, backend="tiled", mesh=object(),
                    device="cpu").build(msa)

@@ -1,0 +1,215 @@
+"""The tree launchers: ``repro_torch.launch.tree_run`` against
+``repro.launch.tree_run``, and ``msa_run --tree cluster|tiled|auto
+--tree-ll`` against the reference's ``msa_run``.
+
+Both launchers run in process on the same FASTA; the port on the CPU. The
+reports must name the same effective backend, carry the same tile stats
+and keys, and the JC69 log-likelihood at rtol=1e-5. Trees: a single NJ
+tree (dense, tiled-exact, the small-N cluster branch) at RF 0; an HPTree
+tree as ``tests/test_torch_tree_backends.py`` compares it (NJ roots each
+cluster by rounding), on the engine results the launchers write out. The
+port's flags that are not ported exit naming their ROADMAP.md item, and
+``--device cuda`` without a card raises.
+"""
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import alphabet as jab
+from repro.core import cluster as jcluster
+from repro.core import likelihood as jlik
+from repro.data import SimConfig, simulate_family, write_fasta
+from repro.launch import msa_run as jmsa_run
+from repro.launch import tree_run as jtree_run
+from repro.phylo import TreeEngine as JTreeEngine
+from repro_torch.launch import msa_run as tmsa_run
+from repro_torch.launch import tree_run as ttree_run
+from repro_torch.phylo import TreeEngine
+from test_torch_msa_run import _splits
+from repro_torch.core import cluster as tcluster
+from test_torch_tree_backends import assert_same_hptree, clades, streamed_stats
+
+GAP, NCH = jab.DNA.gap_code, jab.DNA.n_chars
+N = 150
+HPTREE = ["--target-cluster", "24", "--seed", "2"]
+RUNS = {"dense": ["--backend", "dense"],
+        "cluster": ["--backend", "cluster", *HPTREE],
+        "tiled": ["--backend", "tiled", "--row-block", "32", *HPTREE],
+        "auto": ["--backend", "auto", *HPTREE]}
+
+
+@pytest.fixture(scope="module")
+def aligned(tmp_path_factory):
+    d = tmp_path_factory.mktemp("tree_run")
+    fam = simulate_family(SimConfig(n_leaves=N, root_len=200,
+                                    branch_sub=0.03, branch_indel=0.0,
+                                    seed=5))
+    write_fasta(d / "aligned.fa", fam.names, fam.seqs)
+    msa = np.asarray(jab.encode_batch(fam.seqs, jab.DNA)[0])
+    return d, fam.names, msa
+
+
+@pytest.fixture(scope="module")
+def tree_runs(aligned):
+    d, _, _ = aligned
+    for label, flags in RUNS.items():
+        common = ["--fasta", str(d / "aligned.fa"), "--tree-ll", *flags]
+        jtree_run.main([*common, "--out", str(d / f"jax_{label}")])
+        ttree_run.main([*common, "--out", str(d / f"torch_{label}"),
+                        "--device", "cpu"])
+    return d
+
+
+def _report(d, name):
+    return json.loads((d / name / "report.json").read_text())
+
+
+@pytest.mark.parametrize("label,backend", [("dense", "dense"),
+                                           ("cluster", "cluster"),
+                                           ("tiled", "tiled"),
+                                           ("auto", "cluster")])
+def test_tree_run_reports_match(tree_runs, aligned, label, backend):
+    ref = _report(tree_runs, f"jax_{label}")
+    out = _report(tree_runs, f"torch_{label}")
+    assert set(out) == set(ref)
+    assert out["backend"] == ref["backend"] == backend
+    skip = {"tree_seconds", "log_likelihood", "tile_stats"}
+    assert {k: out[k] for k in out if k not in skip} == \
+        {k: ref[k] for k in ref if k not in skip}
+    assert np.isfinite(out["log_likelihood"])
+    if label == "tiled":
+        stats = out["tile_stats"]
+        assert stats["row_block_bytes"] == 32 * N * 4
+        assert 0 < stats["peak_resident_bytes"] <= stats["row_block_bytes"]
+        cp = tcluster.cluster_phylogeny(
+            torch.from_numpy(aligned[2].copy()), gap_code=GAP, n_chars=NCH,
+            cfg=tcluster.ClusterConfig(target_cluster=24, seed=2))
+        assert stats == streamed_stats(ref["tile_stats"], aligned[2],
+                                       cp.medoids, cp.assignments, 32)
+    else:
+        assert out["tile_stats"] == ref["tile_stats"]
+
+
+@pytest.mark.parametrize("label", ["cluster", "tiled", "auto"])
+def test_tree_run_hptree_trees(tree_runs, aligned, label):
+    """The launchers write their engine's trees; the port's tree agrees
+    with the reference's as an HPTree tree, and the port's logL is the
+    reference's likelihood of the port's tree."""
+    d, names, msa = aligned
+    kw = dict(gap_code=GAP, n_chars=NCH, backend=RUNS[label][1],
+              target_cluster=24, seed=2,
+              row_block=32 if label == "tiled" else 128)
+    ref = JTreeEngine(**kw).build(msa)
+    out = TreeEngine(device="cpu", **kw).build(msa)
+    assert (tree_runs / f"jax_{label}" / "tree.nwk").read_text() == \
+        ref.newick(names) + "\n"
+    assert (tree_runs / f"torch_{label}" / "tree.nwk").read_text() == \
+        out.newick(names) + "\n"
+    assign = jcluster.cluster_phylogeny(
+        msa, gap_code=GAP, n_chars=NCH,
+        cfg=jcluster.ClusterConfig(target_cluster=24, seed=2)).assignments
+    # 1 of the 7 clusters hangs from another edge on this fixture
+    assert assert_same_hptree(clades(ref.children, ref.blen, ref.root),
+                              clades(out.children, out.blen, out.root),
+                              assign, N) <= 1
+    ref_ll = float(jlik.log_likelihood(jnp.asarray(msa),
+                                       jnp.asarray(out.children),
+                                       jnp.asarray(out.blen), out.root,
+                                       gap_code=GAP))
+    np.testing.assert_allclose(
+        _report(tree_runs, f"torch_{label}")["log_likelihood"], ref_ll,
+        rtol=1e-5)
+
+
+def test_tree_run_dense_tree_and_loglik(tree_runs, aligned):
+    _, names, _ = aligned
+    ref = _splits((tree_runs / "jax_dense" / "tree.nwk").read_text(), names)
+    out = _splits((tree_runs / "torch_dense" / "tree.nwk").read_text(), names)
+    assert len(ref) == N - 3 and out == ref
+    np.testing.assert_allclose(
+        _report(tree_runs, "torch_dense")["log_likelihood"],
+        _report(tree_runs, "jax_dense")["log_likelihood"], rtol=1e-5)
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--refine", "ml"], "item 9"), (["--refine", "search"], "item 9"),
+    (["--bootstrap", "5"], "item 9"), (["--restartable"], "item 9"),
+    (["--ckpt-dir", "ck"], "item 9"), (["--resume"], "item 9"),
+    (["--model", "gtr"], "item 9"), (["--ml-steps", "10"], "item 9"),
+    (["--nni-rounds", "2"], "item 9"), (["--starts", "2"], "item 9"),
+    (["--spr-radius", "1"], "item 9"), (["--search-rounds", "3"], "item 9"),
+    (["--dist"], "item 11"), (["--mesh", "2x1"], "item 11")])
+def test_tree_run_unported_flags_name_the_roadmap(aligned, flags, item,
+                                                  capsys):
+    d, _, _ = aligned
+    with pytest.raises(SystemExit):
+        ttree_run.main(["--fasta", str(d / "aligned.fa"), "--device", "cpu",
+                        "--out", str(d / "never"), *flags])
+    err = capsys.readouterr().err
+    assert "ROADMAP.md" in err and item in err
+    assert not (d / "never").exists()
+
+
+def test_tree_run_cuda_without_card_raises(aligned, monkeypatch):
+    d, _, _ = aligned
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ttree_run.main(["--fasta", str(d / "aligned.fa"),
+                        "--out", str(d / "never_cuda")])
+    assert not (d / "never_cuda").exists()
+
+
+def test_encode_aligned_rows_matches_encode_aligned():
+    from repro_torch.core import alphabet as tab
+    seqs = ["ACGT-NRY", "acgt-nxT", "--------"]
+    for alpha in (tab.DNA, tab.PROTEIN):
+        np.testing.assert_array_equal(
+            alpha.encode_aligned_rows(seqs),
+            np.stack([alpha.encode_aligned(s) for s in seqs]))
+
+
+# ------------------------------------------------------------------ msa_run
+
+MSA_RUNS = {"cluster": ["--tree", "cluster", "--cluster-threshold", "4",
+                        "--tree-ll"],
+            "tiled": ["--tree", "tiled", "--tree-ll"],
+            "auto": ["--tree", "auto", "--cluster-threshold", "4"]}
+
+
+@pytest.fixture(scope="module")
+def msa_runs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("msa_run_tree")
+    fam = simulate_family(SimConfig(n_leaves=24, root_len=300, seed=6,
+                                    branch_sub=0.02, branch_indel=0.001))
+    write_fasta(d / "in.fa", fam.names, fam.seqs)
+    for label, flags in MSA_RUNS.items():
+        common = ["--fasta", str(d / "in.fa"), "--k", "10", *flags]
+        jmsa_run.main([*common, "--out", str(d / f"jax_{label}")])
+        tmsa_run.main([*common, "--out", str(d / f"torch_{label}"),
+                       "--device", "cpu"])
+    return d, fam.names
+
+
+@pytest.mark.parametrize("label,backend", [("cluster", "cluster"),
+                                           ("tiled", "tiled-exact"),
+                                           ("auto", "cluster")])
+def test_msa_run_tree_backends_match(msa_runs, label, backend):
+    d, names = msa_runs
+    ref = _report(d, f"jax_{label}")
+    out = _report(d, f"torch_{label}")
+    assert set(out) == set(ref)
+    assert out["tree_backend"] == ref["tree_backend"] == backend
+    assert out.get("tile_stats") == ref.get("tile_stats")
+    assert ("log_likelihood" in out) == (label != "auto")
+    if "log_likelihood" in out:
+        np.testing.assert_allclose(out["log_likelihood"],
+                                   ref["log_likelihood"], rtol=1e-5)
+    assert (d / f"torch_{label}" / "aligned.fasta").read_bytes() == \
+        (d / f"jax_{label}" / "aligned.fasta").read_bytes()
+    ref_s = _splits((d / f"jax_{label}" / "tree.nwk").read_text(), names)
+    assert len(ref_s) == len(names) - 3
+    assert _splits((d / f"torch_{label}" / "tree.nwk").read_text(),
+                   names) == ref_s
