@@ -54,8 +54,31 @@ Phases, in order; any failure exits non-zero:
      launches and normalized RF;
  12. for each tree run, hold kernel 2's largest call, one single-column
      call (M = 1) and one per-cluster square exact against the plain
-     version and time them; then print each kernel on its own path as one
-     JSON line.
+     version and time them;
+ 13. run ``msa_run --tree ml`` (auto backend, here cluster, plus ML
+     refinement at its defaults: model auto, 150 Adam steps, 8 NNI
+     rounds) on 1,024 sequences simulated with Phi_DNA's parameters
+     (mitochondrial-like: root_len 2,048, branch_sub 0.002, branch_indel
+     0.0002): kernels 1 and 2 launched, a registry model, final logL >=
+     initial; print seconds by stage (``ml.fit``, ``ml.score``), the
+     device peak, logL before and after, normalized RF of the dense NJ
+     tree, the backend's tree and the ML tree against the simulated tree; hold the pruning logL and
+     its gradient at the refined tree on the card against the CPU
+     (rtol 1e-5; 1e-3 of the largest gradient component), and a 2-step
+     fit from it (the card's CUDA-graph replay against the CPU's eager
+     steps, rtol 1e-5);
+ 14. ``tree_run --refine ml --bootstrap 100`` on phase 13's alignment:
+     every internal non-trivial edge with a finite support in [0, 1], the
+     Newick with its labels; print bootstrap seconds and replicates/s;
+ 15. the tree-search fleet (4 starts, radius 3, 12 rounds) on 128 of
+     phase 13's rows, as shipped (the searcher turns on deterministic
+     algorithms itself): uninterrupted, killed at round 2 by a non-StepFailure error, resumed;
+     the resumed tree and Newick bitwise equal to the uninterrupted run's;
+     then ``tree_run --refine search --restartable`` once;
+ 16. ``search_run --pipeline --bootstrap 25`` on phase 8's database and
+     queries: every family tree ML-refined with support labels;
+ then hold kernels 1 and 2 on phase 13's largest calls, and print each
+ kernel on its own path as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -94,6 +117,22 @@ N_QUERIES = 4
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
+
+
+_PEAK_CARRY = [0]
+
+
+def reset_peak() -> None:
+    import torch
+    _PEAK_CARRY[0] = 0
+    torch.cuda.reset_peak_memory_stats()
+
+
+def device_peak() -> int:
+    """Peak device bytes allocated since the last ``reset_peak``, through
+    the resets ``BudgetWatch`` makes in between."""
+    import torch
+    return max(torch.cuda.max_memory_allocated(), _PEAK_CARRY[0])
 
 
 def cuda_ms(fn, reps: int = 3):
@@ -520,14 +559,13 @@ class Observe:
         def wrap(fn):
             def wrapped(*args, **kw):
                 torch.cuda.synchronize()
-                self.running = max(self.running,
-                                   torch.cuda.max_memory_allocated())
-                torch.cuda.reset_peak_memory_stats()
+                self.running = max(self.running, device_peak())
+                reset_peak()
                 try:
                     return fn(*args, **kw)
                 finally:
                     torch.cuda.synchronize()
-                    peak = torch.cuda.max_memory_allocated()
+                    peak = device_peak()
                     self.stage_peaks[name] = max(
                         self.stage_peaks.get(name, 0), peak)
                     self.running = max(self.running, peak)
@@ -547,7 +585,7 @@ class Observe:
             bd_ops.fused_variant_launches[variant] = 0
         self.fallbacks0 = fallback_pairs()
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         return self
 
     def __exit__(self, *exc):
@@ -562,8 +600,7 @@ class Observe:
         for obj, attr, fn in self.saved:
             setattr(obj, attr, fn)
         self.fallbacks = int(fallback_pairs() - self.fallbacks0)
-        self.peak_gib = max(self.running,
-                            torch.cuda.max_memory_allocated()) / 2**30
+        self.peak_gib = max(self.running, device_peak()) / 2**30
         return False
 
     def peaks(self) -> str:
@@ -578,9 +615,10 @@ class Observe:
                 in sorted(self.largest.items())]
 
 
-def check_msa(out: Path, fam, backend: str):
+def check_msa(out: Path, fam, backend: str, need_fallbacks: bool = True):
     """The run's aligned FASTA, tree and report are right; returns (rows,
-    report)."""
+    report). ``need_fallbacks``: the family is diverged enough that some
+    k-mer chains fail, so kernel 1 also runs its full-DP role."""
     from repro_torch.data import read_fasta
     names, rows = read_fasta(out / "aligned.fasta")
     if names != fam.names:
@@ -601,7 +639,7 @@ def check_msa(out: Path, fam, backend: str):
     report = json.loads((out / "report.json").read_text())
     if not math.isfinite(report["avg_sp_penalty"]):
         fail(f"avg_sp_penalty {report['avg_sp_penalty']} is not finite")
-    if not report["kmer_fallbacks"] > 0:
+    if need_fallbacks and not report["kmer_fallbacks"] > 0:
         fail("no k-mer fallback: the full-DP role of kernel 1 was not run")
     if report["backend"] != backend or report["width"] != width:
         fail(f"report disagrees with the run: {report}")
@@ -613,14 +651,14 @@ MSA_STAGES = ("load", "encode", "center", "map1", "assemble", "write",
 
 
 def run_msa(fam, fasta: Path, out: Path, label: str, flags, backend: str,
-            kernels, stages=MSA_STAGES):
+            kernels, stages=MSA_STAGES, need_fallbacks=True, tree=False):
     """One ``msa_run`` with the launch counts reset just before it; checks
     its outputs and that each of ``kernels`` was launched."""
     from repro_torch.launch import msa_run
     from repro_torch.obs import trace
     trace.TRACER.clear()
     t0 = time.time()
-    with Observe() as obs:
+    with Observe(tree=tree) as obs:
         msa_run.main(["--fasta", str(fasta), "--out", str(out), *flags])
     wall = time.time() - t0
     print(f"{label} stage seconds: {json.dumps(stage_seconds(stages))} "
@@ -629,7 +667,7 @@ def run_msa(fam, fasta: Path, out: Path, label: str, flags, backend: str,
     print(f"{label} kernel launches: {json.dumps(obs.launches)}; "
           f"gotoh_forward shapes (B, n, m, broadcast, local): "
           f"{sorted(set(obs.sw_shapes))}")
-    rows, report = check_msa(out, fam, backend)
+    rows, report = check_msa(out, fam, backend, need_fallbacks)
     for name in kernels:
         if obs.launches[name] <= 0:
             fail(f"kernel {name} was not launched on the {label}")
@@ -752,7 +790,8 @@ def normalized_rf(tree, true_tree, n) -> float:
     return len(a ^ b) / (2 * max(n - 3, 1))
 
 
-def run_tree(fasta: Path, out: Path, label: str, flags, n: int, true_tree):
+def run_tree(fasta: Path, out: Path, label: str, flags, n: int, true_tree,
+             stages=TREE_STAGES):
     """One ``tree_run`` with the launch counts reset just before it; checks
     its tree and report and that kernel 2 was launched; returns (observer,
     report)."""
@@ -774,9 +813,10 @@ def run_tree(fasta: Path, out: Path, label: str, flags, n: int, true_tree):
         fail(f"tree {label}: log-likelihood {ll} is not finite")
     if obs.launches["match_valid"] <= 0:
         fail(f"kernel match_valid was not launched on the tree {label}")
-    nrf = normalized_rf((res.children, res.root), true_tree, n)
+    nrf = (normalized_rf((res.children, res.root), true_tree, n)
+           if true_tree is not None else float("nan"))
     print(f"tree {label}: backend {report['backend']}, stage seconds "
-          f"{json.dumps(stage_seconds(TREE_STAGES))} (wall {wall:.2f} s), "
+          f"{json.dumps(stage_seconds(stages))} (wall {wall:.2f} s), "
           f"peak device memory {obs.peaks()}, match_valid "
           f"launches {obs.launches['match_valid']}, logL {ll}, normalized "
           f"RF vs the simulated tree {nrf:.4f}, tile_stats "
@@ -883,6 +923,359 @@ def tree_phases(fam, fasta: Path, work: Path, n_big: int = N_BIG,
                            for label, (obs, _) in tree_runs.items())
 
 
+# ----------------------------------------------------------------- ML paths
+
+N_ML = 1024            # msa_run --tree ml: Phi_DNA's shape at scale 64
+N_FLEET = 128          # the tree-search fleet (cut from 256: PERF.md)
+N_BOOT = 100           # tree_run --bootstrap
+ML_STAGES = ("map1", "assemble", "write", "score", "tree.distance",
+             "tree.medoids", "tree.assign", "tree.cluster_nj", "tree.stitch",
+             "ml.fit", "ml.score", "tree.refine", "tree.bootstrap", "tree",
+             "msa_run", "tree_run")
+FLEET_STAGES = ("tree.distance", "ml.fit", "search.score", "search.round",
+                "tree.search", "tree.refine", "tree", "tree_run")
+
+
+class MLWatch:
+    """Keep each ML refinement's input tree and result while a path runs
+    (the calls are not altered)."""
+
+    def __enter__(self):
+        from repro_torch.phylo import ml
+        self.cls, self.saved = ml.MLRefiner, ml.MLRefiner.refine
+        self.inputs, self.results = [], []
+        saved, watch = self.saved, self
+
+        def refine(refiner, msa, children, blen, root, **kw):
+            watch.inputs.append((np.array(children), int(root)))
+            watch.results.append(saved(refiner, msa, children, blen, root,
+                                       **kw))
+            return watch.results[-1]
+        self.cls.refine = refine
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.refine = self.saved
+        return False
+
+
+class BudgetWatch:
+    """Every scoring (``ml.score_trees``: NNI candidates and the search
+    fleet) and bootstrap (``ml.replicate_trees``) call while a phase runs:
+    the device memory it takes above what was allocated when it began,
+    which must stay within its ``budget`` (``ml.MEMORY_BUDGET``)."""
+
+    def __enter__(self):
+        from repro_torch.phylo import ml, treesearch
+        self.used = {"score": 0, "bootstrap": 0}
+        self.calls = {"score": 0, "bootstrap": 0}
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name in (
+            (ml, "score_trees"), (treesearch, "score_trees"),
+            (ml, "replicate_trees"))]
+        for mod, name, fn in self.saved:
+            kind = "score" if name == "score_trees" else "bootstrap"
+            setattr(mod, name, self._wrap(kind, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+    def _wrap(self, kind: str, fn):
+        import torch
+        from repro_torch.phylo import ml
+
+        def wrapped(*args, **kw):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            _PEAK_CARRY[0] = device_peak()
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            used = torch.cuda.max_memory_allocated() - base
+            _PEAK_CARRY[0] = device_peak()
+            budget = kw.get("budget", ml.MEMORY_BUDGET)
+            if used > budget:
+                fail(f"a {kind} call took {used / 2**30:.3f} GiB of device "
+                     f"memory, over its budget of {budget / 2**30:.3f} GiB")
+            self.used[kind] = max(self.used[kind], used)
+            self.calls[kind] += 1
+            return out
+        return wrapped
+
+    def report(self) -> str:
+        from repro_torch.phylo import ml
+        return ", ".join(
+            f"{k}: {self.calls[k]} calls, largest {self.used[k] / 2**30:.3f} "
+            f"GiB" for k in self.used) + \
+            f" (budget {ml.MEMORY_BUDGET / 2**30:.3f} GiB each)"
+
+
+def hold_loglik(msa, res, card: str = "cuda") -> None:
+    """The pruning logL and its branch-length gradient at the refined
+    tree, on the card against the port's CPU result: logL at rtol 1e-5,
+    the gradient within 1e-3 of its largest component."""
+    import torch
+    from repro_torch.core import likelihood as lik
+    from repro_torch.phylo import models
+    pat, w = lik.compress_patterns(msa)
+    n = msa.shape[0]
+    order = np.arange(n, 2 * n - 1)
+    got = {}
+    for dev in (card, "cpu"):
+        dec = models.decompose(res.model, torch.from_numpy(res.params).to(dev))
+        bl = torch.from_numpy(res.blen).to(dev).requires_grad_(True)
+        t0 = time.time()
+        ll = lik.pruning_log_likelihood(
+            torch.from_numpy(pat).to(dev), torch.from_numpy(w).to(dev),
+            res.children, bl, order, res.root, *dec, site_chunk=2048)
+        ll.backward()
+        got[dev] = (float(ll.detach()), bl.grad.cpu().numpy(),
+                    time.time() - t0)
+    (lc, gc, tc), (lp, gp, tp) = got[card], got["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    gerr = float(np.abs(gc - gp).max() / np.abs(gp).max())
+    if not (rel <= 1e-5 and gerr <= 1e-3):
+        fail(f"pruning logL on the card {lc} vs CPU {lp} (rel {rel:.2e}), "
+             f"gradient error {gerr:.2e} of its largest component")
+    print(f"pruning logL + gradient at the refined tree ({res.model}, "
+          f"{pat.shape[1]} patterns): card {lc} vs CPU {lp}, rel {rel:.2e}, "
+          f"gradient error {gerr:.2e} of the largest component (card "
+          f"{tc:.3f} s, CPU {tp:.3f} s, first call)")
+
+
+def hold_fit(msa, res, card: str = "cuda", steps: int = 2) -> None:
+    """``ml._fit`` from the refined tree: on the card (one step captured
+    as a CUDA graph, replayed) against the CPU's eager steps. Adam's
+    bias correction rounds differently on the two (device tensors vs
+    host floats), so the fitted logL is held at rtol 1e-5."""
+    import torch
+    from repro_torch.core import likelihood as lik
+    from repro_torch.phylo import ml
+    pat, w = lik.compress_patterns(msa)
+    n = msa.shape[0]
+    order = np.arange(n, 2 * n - 1)
+    got = {}
+    for dev in (card, "cpu"):
+        t0 = time.time()
+        _, _, ll = ml._fit(torch.from_numpy(pat).to(dev),
+                           torch.from_numpy(w).to(dev), res.children, order,
+                           res.root, res.blen, res.params, model=res.model,
+                           steps=steps, lr=0.05, site_chunk=2048)
+        got[dev] = (float(ll), time.time() - t0)
+    (lc, tc), (lp, tp) = got[card], got["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    if not rel <= 1e-5:
+        fail(f"{steps}-step fit on the card {lc} vs CPU {lp} (rel {rel:.2e})")
+    print(f"{steps}-step fit from the refined tree: card (graph) {lc} vs CPU "
+          f"(eager) {lp}, rel {rel:.2e} (card {tc:.3f} s with its capture, "
+          f"CPU {tp:.3f} s)")
+
+
+def check_supports(res, nwk: str, n: int) -> int:
+    """Every internal non-trivial edge of the tree carries a finite support
+    in [0, 1], and the Newick carries one label per supported node;
+    returns the number of labelled nodes."""
+    children, root, sup = res.children, res.root, res.support
+    size = np.zeros(children.shape[0], np.int64)
+    size[:n] = 1
+    for v in range(n, children.shape[0]):
+        size[v] = size[children[v, 0]] + size[children[v, 1]]
+    for v in range(n, children.shape[0]):
+        if v != root and 1 < size[v] < n - 1:
+            if not (np.isfinite(sup[v]) and 0.0 <= sup[v] <= 1.0):
+                fail(f"node {v} (clade of {size[v]}) has support {sup[v]}")
+    labels = re.findall(r"\)([0-9.]+)[:;]", nwk)
+    if len(labels) != int(np.isfinite(sup).sum()) or not labels:
+        fail(f"tree.nwk carries {len(labels)} support labels, the tree "
+             f"{int(np.isfinite(sup).sum())} finite supports")
+    return len(labels)
+
+
+def fleet_run(msa, label: str, card: str, **kw):
+    """One ``TreeSearcher`` run on the card; returns (result, peak GiB,
+    wall seconds)."""
+    import torch
+    from repro_torch.obs import trace
+    from repro_torch.phylo.treesearch import TreeSearcher
+    trace.TRACER.clear()
+    torch.cuda.synchronize()
+    reset_peak()
+    t0 = time.time()
+    res = TreeSearcher(gap_code=5, device=card, **kw).search(msa)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    peak = device_peak() / 2**30
+    print(f"fleet {label}: stage seconds "
+          f"{json.dumps(stage_seconds(FLEET_STAGES))} (wall {wall:.2f} s), "
+          f"peak device memory {peak:.3f} GiB")
+    return res, peak, wall
+
+
+def fleet_phase(msa, names, work: Path, card: str = "cuda") -> None:
+    """Phase 15: the fleet uninterrupted, killed at round 2, resumed —
+    as a user runs it: the searcher turns on deterministic algorithms
+    and the cuBLAS workspace configuration itself, after cuBLAS has
+    started in the earlier phases — the resumed tree bitwise equal to the
+    uninterrupted one; then ``tree_run --refine search --restartable``
+    once."""
+    import shutil
+
+    import torch
+    from repro_torch.core import treeio
+    from repro_torch.data import write_fasta
+    for d in ("fleet_clean", "fleet_killed"):
+        shutil.rmtree(work / d, ignore_errors=True)
+
+    def kill(step):
+        if step == 2:
+            raise RuntimeError("killed at round 2")
+
+    if torch.are_deterministic_algorithms_enabled():
+        fail("deterministic algorithms are on before the fleet runs")
+    clean, _, _ = fleet_run(msa, "uninterrupted", card,
+                            ckpt_dir=str(work / "fleet_clean"))
+    try:
+        fleet_run(msa, "killed", card, ckpt_dir=str(work / "fleet_killed"),
+                  failure_hook=kill)
+        fail("the fleet's failure hook did not stop the run")
+    except RuntimeError as e:
+        if "killed at round 2" not in str(e):
+            raise
+        print("fleet killed at round 2 (a non-StepFailure error)")
+    resumed, _, _ = fleet_run(msa, "resumed", card,
+                              ckpt_dir=str(work / "fleet_killed"),
+                              resume=True)
+    if torch.are_deterministic_algorithms_enabled():
+        fail("the searcher left deterministic algorithms on")
+    nwk = [treeio.to_newick(r.children, r.blen, r.root, names)
+           for r in (clean, resumed)]
+    if not (np.array_equal(clean.children, resumed.children)
+            and np.array_equal(clean.blen, resumed.blen)
+            and clean.root == resumed.root
+            and clean.logl_final == resumed.logl_final
+            and np.array_equal(clean.trajectories, resumed.trajectories,
+                               equal_nan=True)
+            and np.array_equal(clean.n_moves, resumed.n_moves)
+            and nwk[0] == nwk[1]):
+        fail("the resumed fleet differs from the uninterrupted one")
+    print(f"fleet: the resumed tree, lengths, logL, trajectories and Newick "
+          f"are bitwise equal to the uninterrupted run's "
+          f"(model {clean.model}, best start {clean.best_start} "
+          f"{clean.start_labels[clean.best_start]}, logL "
+          f"{clean.logl_init} -> {clean.logl_final}, moves (nni, spr) per "
+          f"start {clean.n_moves.tolist()})")
+    print(f"fleet per-start trajectories: "
+          f"{json.dumps(np.round(clean.trajectories, 3).tolist())}; round "
+          f"seconds {json.dumps(np.round(clean.round_seconds, 3).tolist())}")
+
+    fasta = work / f"phi_dna_{len(names)}_aligned.fa"
+    from repro_torch.core import alphabet as ab
+    write_fasta(fasta, names, [ab.DNA.decode(r) for r in msa])
+    _, rep = run_tree(fasta, work / "tree_search", f"search {len(names)}",
+                      ["--refine", "search", "--restartable"], len(names),
+                      None, stages=FLEET_STAGES)
+    if not rep["backend"].endswith("+search") or not Path(
+            rep["search"]["ckpt_dir"]).is_dir():
+        fail(f"tree_run --refine search --restartable: {rep['backend']}, "
+             f"{rep['search']['ckpt_dir']}")
+    print(f"tree_run --refine search --restartable: best start "
+          f"{rep['search']['best_start']}, logL {rep['logl']}, moves "
+          f"{rep['search']['n_moves']}")
+
+
+def ml_phases(work: Path, route: str = "cuda"):
+    """Phases 13-16, every scoring and bootstrap call held within its
+    memory budget; returns the observer of phase 13's ``msa_run``."""
+    with BudgetWatch() as budget:
+        obs = _ml_phases(work, route)
+    if not all(budget.calls.values()):
+        fail(f"phases 13-16 made no scoring or no bootstrap call: "
+             f"{budget.calls}")
+    print(f"scoring and bootstrap device memory above each call's start: "
+          f"{budget.report()}")
+    return obs
+
+
+def _ml_phases(work: Path, route: str):
+    from repro_torch.core import alphabet as ab
+    from repro_torch.data import phi_dna, write_fasta
+    from repro_torch.phylo import TreeEngine, models
+    t0 = time.time()
+    fam = phi_dna(N_ML // 16)
+    print(f"simulated {N_ML} Phi_DNA-shaped sequences, lengths "
+          f"{min(map(len, fam.seqs))}..{max(map(len, fam.seqs))}, in "
+          f"{time.time() - t0:.1f} s")
+    fasta = work / f"phi_dna_{N_ML}.fa"
+    write_fasta(fasta, fam.names, fam.seqs)
+    truth = (fam.children, fam.root)
+
+    # 13: msa_run --tree ml
+    with MLWatch() as watch:
+        obs, rows, report = run_msa(
+            fam, fasta, work / "out_ml", "ml path --tree ml",
+            ["--tree", "ml"], route, ("gotoh_forward", "match_valid"),
+            stages=ML_STAGES, need_fallbacks=False, tree=True)
+    res, logl = watch.results[0], report["tree_logl"]
+    if report["tree_backend"] != "cluster+ml" or \
+            report["tree_model"] not in models.MODELS or \
+            not logl["final"] >= logl["initial"]:
+        fail(f"msa_run --tree ml: {report['tree_backend']}, "
+             f"{report['tree_model']}, logL {logl}")
+    tree = obs.tree_result
+    msa = ab.DNA.encode_aligned_rows(rows)
+    card = "cuda" if route == "cuda" else "cpu"
+    nj = TreeEngine(gap_code=5, n_chars=5, backend="dense",
+                    device=card).build(msa)
+    print(f"ml path: model {res.model} (BIC {json.dumps(res.bic)}), "
+          f"{res.n_nni} NNI, logL {logl['initial']} -> {logl['final']}; "
+          f"normalized RF vs the simulated tree: dense NJ tree "
+          f"{normalized_rf((nj.children, nj.root), truth, N_ML):.4f}, "
+          f"backend (cluster) tree "
+          f"{normalized_rf(watch.inputs[0], truth, N_ML):.4f}, ML tree "
+          f"{normalized_rf((tree.children, tree.root), truth, N_ML):.4f}")
+    hold_loglik(msa, res, card)
+    hold_fit(msa, res, card)
+
+    # 14: tree_run --refine ml --bootstrap
+    out = work / "tree_ml_boot"
+    obs14, rep = run_tree(out.parent / "out_ml" / "aligned.fasta", out,
+                          f"ml bootstrap {N_ML}",
+                          ["--refine", "ml", "--bootstrap", str(N_BOOT)],
+                          N_ML, truth, stages=ML_STAGES)
+    n_labels = check_supports(obs14.tree_result,
+                              (out / "tree.nwk").read_text(), N_ML)
+    secs = rep["bootstrap"]["bootstrap_seconds"]
+    print(f"bootstrap {N_BOOT} replicates at {N_ML} leaves: {secs:.2f} s, "
+          f"{N_BOOT / secs:.2f} replicates/s, {n_labels} supported edges, "
+          f"mean support {rep['bootstrap']['mean_support']}")
+    obs14.mv_largest = {}
+
+    # 15: the search fleet, kill and resume
+    fleet_phase(msa[:N_FLEET], fam.names[:N_FLEET], work, card)
+
+    # 16: search_run --pipeline --bootstrap on phase 8's database
+    _, queries = run_search(work, work / "db.fa", work / "q.fa",
+                            "pipeline bootstrap",
+                            ["--score", "global", "--max-hits", "10",
+                             "--pipeline", "--bootstrap", "25"],
+                            ("gotoh_forward", "match_valid"))
+    fams = json.loads((work / "pipeline_bootstrap" / "report.json")
+                      .read_text())["families"]
+    for f in fams:
+        if f.get("skipped"):
+            continue
+        nwk = (work / "pipeline_bootstrap" / f["dir"] / "tree.nwk"
+               ).read_text()
+        if f["refine"] != "ml" or f["mean_support"] is None or \
+                not re.search(r"\)[0-9.]+:", nwk):
+            fail(f"search_run --pipeline --bootstrap 25: family {f}")
+    print(f"search pipeline bootstrap: families "
+          f"{[(f['query'], f['n_members'], f.get('mean_support')) for f in fams]}")
+    return obs
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -976,6 +1369,12 @@ def main() -> int:
           f"{json.dumps(mv)}")
 
     mv_err = max(mv_err, tree_phases(fam, fasta, work))
+
+    ml_obs = ml_phases(work)
+    ml_run = (("ml path --tree ml", ml_obs),)
+    e, _ = hold_path_calls(ml_run)
+    err["gotoh_forward"] = max(err["gotoh_forward"], e["gotoh_forward"])
+    mv_err = max(mv_err, hold_tree_calls(ml_run))
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

@@ -1,2 +1,4 @@
 """repro_torch.dist — of the distributed runtime (ROADMAP.md §1 item 11)
-only ``checkpoint.atomic_save_npz`` is ported, for the search index."""
+the single-process pieces are ported: ``checkpoint`` (``atomic_save_npz``
+and the step ``CheckpointManager``) and ``fault.ResilientLoop``; the
+mesh-sharded map/reduce, collectives and ``BackupShardPlan`` are not."""

@@ -1,16 +1,39 @@
-"""Crash-safe single-file persistence.
+"""Crash-safe persistence: one-file npz writes and step checkpoints.
 
-Only ``atomic_save_npz`` of ``repro.dist.checkpoint`` is ported (the
-search index persists through it); the checkpoint manager belongs to the
-distributed runtime, ROADMAP.md §1 item 11.
+``atomic_save_npz`` is the durability primitive (the search index
+persists through it). ``CheckpointManager`` keeps one ``step_<N>.npz``
+file per step holding the state's leaves as ``leaf_0, leaf_1, ...`` in
+the reference's flatten order (a dict's values by sorted key, lists and
+tuples in order), so a checkpoint the JAX package wrote restores here and
+the other way round. Every write goes through ``atomic_save_npz``.
+Retention keeps the newest ``keep`` steps. ``restore`` walks newest-to-oldest past
+unreadable or mismatched files.
 """
 from __future__ import annotations
 
 import os
+import time
 import uuid
+import warnings
 from pathlib import Path
+from typing import List, Optional
 
 import numpy as np
+import torch
+
+from ..obs import metrics as _obs
+
+_PREFIX = "step_"
+_SUFFIX = ".npz"
+
+_H_WRITE = _obs.histogram("repro_checkpoint_write_seconds",
+                          "serialize + atomic replace per checkpoint")
+_C_WRITES = _obs.counter("repro_checkpoint_writes_total",
+                         "checkpoints written")
+_C_BYTES = _obs.counter("repro_checkpoint_bytes_total",
+                        "checkpoint bytes written")
+_C_RESTORES = _obs.counter("repro_checkpoint_restores_total",
+                           "successful checkpoint restores")
 
 
 def atomic_save_npz(path, arrays: dict, *, _hook=None):
@@ -39,3 +62,133 @@ def atomic_save_npz(path, arrays: dict, *, _hook=None):
             _hook("save.post-replace")
     finally:
         tmp.unlink(missing_ok=True)
+
+
+def _leaves(tree) -> list:
+    """Leaves in the reference's flatten order: dict values by sorted
+    key, list/tuple items in order, ``None`` an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for item in tree for x in _leaves(item)]
+    return [tree]
+
+
+def _unflatten(like, it):
+    """``like``'s structure with its leaves taken from ``it`` in flatten
+    order; a torch leaf comes back as a tensor on its device."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], it) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(item, it) for item in like)
+    host = next(it)
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(host).to(like.device)
+    return host
+
+
+def _to_host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.array(x)
+
+
+class CheckpointManager:
+    def __init__(self, directory, keep: Optional[int] = None):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+
+    # ------------------------------------------------------------- inventory
+
+    def _path(self, step: int) -> Path:
+        return self.dir / f"{_PREFIX}{step:010d}{_SUFFIX}"
+
+    def all_steps(self) -> List[int]:
+        steps = []
+        for p in self.dir.glob(f"{_PREFIX}*{_SUFFIX}"):
+            try:
+                steps.append(int(p.name[len(_PREFIX):-len(_SUFFIX)]))
+            except ValueError:
+                continue
+        return sorted(steps)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    # ------------------------------------------------------------------ save
+
+    def save(self, step: int, tree):
+        """Checkpoint ``tree`` as ``step`` (host copy, atomic write, then
+        retention)."""
+        t0 = time.perf_counter()
+        path = self._path(step)
+        atomic_save_npz(path, {f"leaf_{i}": _to_host(x)
+                               for i, x in enumerate(_leaves(tree))})
+        _H_WRITE.observe(time.perf_counter() - t0)
+        _C_WRITES.inc()
+        _C_BYTES.inc(path.stat().st_size)
+        self._gc()
+
+    def _gc(self):
+        if self.keep is None:
+            return
+        steps = self.all_steps()
+        for s in steps[:max(len(steps) - self.keep, 0)]:
+            try:
+                self._path(s).unlink()
+            except FileNotFoundError:
+                pass
+
+    # --------------------------------------------------------------- restore
+
+    def restore(self, like, step: Optional[int] = None):
+        """Load into the structure of ``like``; returns ``(tree, step)``.
+
+        With ``step=None`` the newest readable checkpoint wins; unreadable
+        or structurally mismatched files are skipped with a warning.
+        """
+        leaves = _leaves(like)
+        candidates = [step] if step is not None else self.all_steps()[::-1]
+        for s in candidates:
+            host = self._read(s, shapes=[np.shape(x) for x in leaves],
+                              strict=step is not None)
+            if host is None:
+                continue
+            _C_RESTORES.inc()
+            return _unflatten(like, iter(host)), s
+        raise FileNotFoundError(
+            f"no restorable checkpoint in {self.dir} "
+            f"(requested step={step}, present={self.all_steps()})")
+
+    def _read(self, step: int, *, shapes, strict: bool):
+        path = self._path(step)
+        try:
+            with np.load(path) as z:
+                host = [z[f"leaf_{i}"] for i in range(len(z.files))]
+        except Exception as e:
+            if strict:
+                raise
+            warnings.warn(f"skipping unreadable checkpoint {path}: {e!r}")
+            return None
+        msg = None
+        if len(host) != len(shapes):
+            msg = (f"checkpoint {path} has {len(host)} leaves, "
+                   f"restore target has {len(shapes)}")
+        else:
+            for i, (h, shp) in enumerate(zip(host, shapes)):
+                if tuple(h.shape) != tuple(shp):
+                    msg = (f"checkpoint {path} leaf {i} has shape {h.shape}, "
+                           f"restore target expects {shp}")
+                    break
+        if msg is not None:
+            if strict:
+                raise ValueError(msg)
+            warnings.warn("skipping: " + msg)
+            return None
+        return host

@@ -11,10 +11,11 @@ the DP route that ran (``cuda`` = the hand-written kernels, ``torch`` =
 their plain versions; ``-banded`` for ``--backend banded|banded-pallas``,
 which run the banded forward kernel with ``--band`` columns). ``--tree``
 picks the ``repro_torch.phylo.TreeEngine`` backend (``nj`` = dense,
-``cluster``, ``tiled``, ``auto``); ``--tree-ll`` adds the tree's JC69
-log-likelihood to the report. Flags of the reference whose path is not
-ported yet raise an error naming the ROADMAP.md item: ``--dist`` and
-``--tree ml``.
+``cluster``, ``tiled``, ``auto``; ``ml`` = the auto backend plus
+maximum-likelihood refinement — autodiff branch lengths, BIC model
+selection, NNI — which adds the model and logL before/after to the
+report); ``--tree-ll`` adds the tree's JC69 log-likelihood. ``--dist`` is
+not ported yet and raises an error naming ROADMAP.md §1 item 11.
 """
 from __future__ import annotations
 
@@ -26,8 +27,6 @@ from pathlib import Path
 _NOT_PORTED = {
     "dist": "--dist is not ported yet (ROADMAP.md §1 item 11, the "
             "distributed runtime)",
-    "tree": "--tree ml is not ported yet (ROADMAP.md §1 item 9, "
-            "likelihood and ML)",
 }
 
 
@@ -45,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tree", default="nj",
                     choices=["nj", "cluster", "tiled", "auto", "ml", "none"],
                     help="tree backend (repro_torch.phylo registry; nj = "
-                         "dense; ml is not ported)")
+                         "dense; ml = auto backend + ML refinement)")
     ap.add_argument("--cluster-threshold", type=int, default=64,
                     help="N at or below which cluster/auto tree backends "
                          "fall back to dense NJ")
@@ -77,8 +76,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.dist:
         parser.error(_NOT_PORTED["dist"])
-    if args.tree == "ml":
-        parser.error(_NOT_PORTED["tree"])
+    if args.tree == "ml" and args.alphabet == "protein":
+        parser.error("--tree ml needs a nucleotide alphabet (the 4-state "
+                     "likelihood); use --tree cluster/tiled for protein")
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
@@ -130,12 +130,17 @@ def _run(args):
         t0 = time.time()
         engine = TreeEngine(gap_code=alpha.gap_code, n_chars=alpha.n_chars,
                             correct=args.alphabet != "protein",
-                            backend={"nj": "dense"}.get(args.tree, args.tree),
+                            backend={"nj": "dense", "ml": "auto"}.get(
+                                args.tree, args.tree),
                             cluster_threshold=args.cluster_threshold,
+                            refine="ml" if args.tree == "ml" else "none",
                             device=args.device)
         tree_res = engine.build(msa)
         report["tree_seconds"] = time.time() - t0
         report["tree_backend"] = tree_res.backend
+        if tree_res.logl is not None:
+            report["tree_model"] = tree_res.model
+            report["tree_logl"] = tree_res.logl
         if tree_res.tile_stats is not None:
             report["tile_stats"] = tree_res.tile_stats
         nwk = tree_res.newick(names)

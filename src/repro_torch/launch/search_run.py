@@ -11,12 +11,13 @@ The same flags and outputs as ``repro.launch.search_run``
 (``hits.json``, ``report.json``; with ``--pipeline`` each query family —
 the query and its hits — is center-star aligned (``--method plain`` with
 the chosen backend) and treed by dense NJ into
-``family_<i>_<query>/aligned.fasta`` + ``tree.nwk``), plus ``--device``:
-the run is on the card (``cuda``, the default; it raises when there is
-none) or, with ``--device cpu``, on the plain PyTorch path. An index
-saved by either package loads in the other. Flags whose path is not
-ported yet raise an error naming the ROADMAP.md item: ``--dist`` /
-``--mesh`` (item 11) and ``--bootstrap`` above 0 (item 9).
+``family_<i>_<query>/aligned.fasta`` + ``tree.nwk``; with
+``--bootstrap B > 0`` a family of at least 4 members gets an ML-refined
+tree with B-replicate support labels instead), plus ``--device``: the run
+is on the card (``cuda``, the default; it raises when there is none) or,
+with ``--device cpu``, on the plain PyTorch path. An index saved by
+either package loads in the other. ``--dist`` / ``--mesh`` are not ported
+yet and raise an error naming ROADMAP.md §1 item 11.
 """
 from __future__ import annotations
 
@@ -28,8 +29,6 @@ from pathlib import Path
 _NOT_PORTED = {
     "dist": "--dist/--mesh are not ported yet (ROADMAP.md §1 item 11, the "
             "distributed runtime)",
-    "bootstrap": "--bootstrap > 0 (ML family trees with support) is not "
-                 "ported yet (ROADMAP.md §1 item 9, likelihood and ML)",
 }
 
 
@@ -83,7 +82,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "(query + its hits)")
     ap.add_argument("--bootstrap", type=int, default=0,
                     help="bootstrap replicates for family-tree support "
-                         "labels (only 0, an unrefined NJ tree, is ported)")
+                         "labels (0 = plain NJ tree; >0 = ML-refined tree "
+                         "with support)")
+    ap.add_argument("--ml-steps", type=int, default=60,
+                    help="adam steps per ML fit for --bootstrap trees")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="bootstrap / ML seed")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default; raises without one) "
                          "or on the plain PyTorch path on the CPU")
@@ -102,8 +106,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if args.dist or args.mesh is not None:
         parser.error(_NOT_PORTED["dist"])
-    if args.bootstrap > 0:
-        parser.error(_NOT_PORTED["bootstrap"])
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
@@ -180,6 +182,8 @@ def _run(args, parser):
 
 def _run_pipeline(args, out: Path, index, result, q_seqs, write_fasta):
     """search -> align -> tree: one family (query + hits) per query."""
+    import numpy as np
+
     from ..core import alphabet as ab
     from ..core.msa import MSAConfig, center_star_msa, decode_msa
     from ..phylo import TreeEngine
@@ -203,12 +207,20 @@ def _run_pipeline(args, out: Path, index, result, q_seqs, write_fasta):
         res = center_star_msa(seqs, msa_cfg, device=args.device)
         write_fasta(fam_dir / "aligned.fasta", names,
                     decode_msa(res.msa, msa_cfg))
+        refine = "ml" if args.bootstrap > 0 and len(seqs) >= 4 else "none"
         engine = TreeEngine(gap_code=alpha.gap_code, n_chars=alpha.n_chars,
-                            backend="dense", device=args.device)
+                            backend="dense", refine=refine,
+                            bootstrap=args.bootstrap if refine == "ml" else 0,
+                            ml_steps=args.ml_steps, seed=args.seed,
+                            device=args.device)
         tree = engine.build(res.msa)
         (fam_dir / "tree.nwk").write_text(tree.newick(names) + "\n")
         info.update(width=res.width, tree_backend=tree.backend,
-                    refine="none")
+                    refine=refine)
+        if tree.support is not None:
+            finite = tree.support[np.isfinite(tree.support)]
+            info["mean_support"] = (round(float(finite.mean()), 4)
+                                    if finite.size else None)
         families.append(info)
     return families
 

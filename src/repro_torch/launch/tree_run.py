@@ -2,36 +2,32 @@
 
   PYTHONPATH=src python -m repro_torch.launch.tree_run \
       --fasta aligned.fasta --out tree_out/ --backend tiled \
-      [--row-block 128] [--tree-ll] [--device cuda|cpu]
+      [--row-block 128] [--tree-ll] [--device cuda|cpu] \
+      [--refine ml --model auto --bootstrap 100] \
+      [--refine search --starts 4 --restartable [--resume]]
 
-The same flags and outputs as ``repro.launch.tree_run`` (``tree.nwk`` and
+The same flags and outputs as ``repro.launch.tree_run`` (``tree.nwk``,
+with per-edge bootstrap support labels when ``--bootstrap`` ran, and
 ``report.json``: effective backend, tree seconds, for the tiled backends
-the tile accountant's memory stats, and with ``--tree-ll`` the JC69
-log-likelihood), plus ``--device``: the run is on the card (``cuda``, the
-default; it raises when there is none) or, with ``--device cpu``, on the
-plain PyTorch path. The distance counts go through the match/valid kernel
-on the card.
+the tile accountant's memory stats, with ``--tree-ll`` the JC69
+log-likelihood, for ``--refine ml``/``search`` the selected model,
+per-model BIC and logL before/after, for ``search`` the per-start
+trajectories and move counts), plus ``--device``: the run is on the card
+(``cuda``, the default; it raises when there is none) or, with
+``--device cpu``, on the plain PyTorch path. The distance counts go
+through the match/valid kernel on the card.
 
-Flags of the reference whose path is not ported yet exit with an error
-naming the ROADMAP.md item when given: ``--refine ml|search``,
-``--bootstrap`` > 0, ``--restartable``, ``--ckpt-dir``, ``--resume`` and
-any value other than the default of the refinement settings ``--model``,
-``--ml-steps``, ``--nni-rounds``, ``--starts``, ``--spr-radius`` and
-``--search-rounds`` (item 9, likelihood and ML); ``--dist`` and
-``--mesh`` (item 11, the distributed runtime).
+``--dist`` and ``--mesh`` are not ported yet and exit with an error
+naming ROADMAP.md §1 item 11 (the distributed runtime).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from pathlib import Path
 
-_ITEM9 = "ROADMAP.md §1 item 9, likelihood and ML"
 _ITEM11 = "ROADMAP.md §1 item 11, the distributed runtime"
-# settings read only by --refine ml|search: a value other than the
-# default is refused rather than ignored
-_REFINE_ONLY = ("model", "ml_steps", "nni_rounds", "starts", "spr_radius",
-                "search_rounds")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,28 +55,44 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tree-ll", action="store_true",
                     help="also score the tree by JC69 log-likelihood "
                          "(DNA/RNA only)")
-    refine_only = f"for --refine; only the default is accepted ({_ITEM9})"
     ap.add_argument("--refine", default="none",
                     choices=["none", "ml", "search"],
-                    help=f"only none is ported ({_ITEM9})")
+                    help="ml = single-start ML refinement "
+                         "(repro_torch.phylo.ml), search = the "
+                         "multi-start NNI+SPR fleet "
+                         "(repro_torch.phylo.treesearch); DNA/RNA only")
     ap.add_argument("--model", default="auto",
                     choices=["auto", "jc69", "k80", "hky85", "gtr"],
-                    help=f"substitution model {refine_only}")
+                    help="substitution model for --refine ml/search "
+                         "(auto = select by BIC)")
     ap.add_argument("--bootstrap", type=int, default=0,
-                    help=f"bootstrap replicates; only 0 is ported "
-                         f"({_ITEM9})")
-    ap.add_argument("--ml-steps", type=int, default=150, help=refine_only)
-    ap.add_argument("--nni-rounds", type=int, default=8, help=refine_only)
-    ap.add_argument("--starts", type=int, default=4, help=refine_only)
-    ap.add_argument("--spr-radius", type=int, default=3, help=refine_only)
+                    help="bootstrap replicates for per-edge support "
+                         "labels (0 = off; requires --refine ml or "
+                         "search)")
+    ap.add_argument("--ml-steps", type=int, default=150,
+                    help="adam steps per ML branch-length/model fit")
+    ap.add_argument("--nni-rounds", type=int, default=8,
+                    help="max accepted NNI rounds for --refine ml")
+    ap.add_argument("--starts", type=int, default=4,
+                    help="fleet size K for --refine search (start "
+                         "topologies: NJ, cluster-medoid, random "
+                         "stepwise addition)")
+    ap.add_argument("--spr-radius", type=int, default=3,
+                    help="SPR regraft radius (hops from the prune wound) "
+                         "for --refine search")
     ap.add_argument("--search-rounds", type=int, default=12,
-                    help=refine_only)
+                    help="max move rounds per search for --refine search")
     ap.add_argument("--restartable", action="store_true",
-                    help=f"not ported ({_ITEM9})")
+                    help="checkpoint the search fleet per round (to "
+                         "--ckpt-dir, default <out>/search_ckpt); a "
+                         "killed run resumes bit-identically with "
+                         "--resume")
     ap.add_argument("--ckpt-dir", default=None,
-                    help=f"not ported ({_ITEM9})")
+                    help="search checkpoint directory (implies "
+                         "--restartable)")
     ap.add_argument("--resume", action="store_true",
-                    help=f"not ported ({_ITEM9})")
+                    help="resume a killed --restartable search from its "
+                         "newest checkpoint")
     ap.add_argument("--dist", action="store_true",
                     help=f"not ported ({_ITEM11})")
     ap.add_argument("--mesh", default=None, help=f"not ported ({_ITEM11})")
@@ -95,19 +107,21 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.refine != "none":
-        parser.error(f"--refine {args.refine} is not ported yet ({_ITEM9})")
-    if args.bootstrap > 0:
-        parser.error(f"--bootstrap is not ported yet ({_ITEM9})")
-    for name in _REFINE_ONLY:
-        if getattr(args, name) != parser.get_default(name):
-            parser.error(f"--{name.replace('_', '-')} sets --refine ml|search, "
-                         f"which is not ported yet ({_ITEM9})")
-    if args.restartable or args.ckpt_dir or args.resume:
-        parser.error("--restartable/--ckpt-dir/--resume are not ported yet "
-                     f"({_ITEM9})")
+    if args.bootstrap > 0 and args.refine == "none":
+        parser.error("--bootstrap requires --refine ml or search")
+    if args.refine != "none" and args.alphabet == "protein":
+        parser.error(f"--refine {args.refine} needs a nucleotide alphabet "
+                     "(the 4-state likelihood)")
+    if args.resume and not (args.restartable or args.ckpt_dir):
+        parser.error("--resume requires --restartable (or --ckpt-dir)")
+    if (args.restartable or args.ckpt_dir) and args.refine != "search":
+        parser.error("--restartable/--ckpt-dir apply to --refine search")
     if args.dist or args.mesh is not None:
         parser.error(f"--dist/--mesh are not ported yet ({_ITEM11})")
+    if args.refine == "search":
+        # the search runs under deterministic algorithms; cuBLAS reads its
+        # workspace configuration once, when it starts
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
@@ -120,6 +134,7 @@ def main(argv=None):
 def _run(args):
     from ..obs import trace as _trace
     with _trace.span("load"):
+        import numpy as np
         import torch
 
         from ..core import alphabet as ab
@@ -138,13 +153,22 @@ def _run(args):
         msa = torch.from_numpy(alpha.encode_aligned_rows(seqs)).to(
             args.device)
 
+    ckpt_dir = args.ckpt_dir
+    if args.restartable and ckpt_dir is None:
+        ckpt_dir = str(Path(args.out) / "search_ckpt")
     engine = TreeEngine(gap_code=alpha.gap_code, n_chars=alpha.n_chars,
                         correct=args.alphabet != "protein",
                         backend=args.backend,
                         cluster_threshold=args.cluster_threshold,
                         row_block=args.row_block,
                         target_cluster=args.target_cluster,
-                        seed=args.seed, device=args.device)
+                        seed=args.seed, refine=args.refine,
+                        model=args.model, bootstrap=args.bootstrap,
+                        ml_steps=args.ml_steps, nni_rounds=args.nni_rounds,
+                        starts=args.starts, spr_radius=args.spr_radius,
+                        search_rounds=args.search_rounds,
+                        ckpt_dir=ckpt_dir, resume=args.resume,
+                        device=args.device)
     result = engine.build(msa)
 
     out = Path(args.out)
@@ -155,6 +179,25 @@ def _run(args):
               "backend": result.backend, "requested_backend": args.backend,
               "tree_seconds": result.timings["total_seconds"],
               "tile_stats": result.tile_stats}
+    if result.logl is not None:
+        report["refine"] = args.refine
+        report["model"] = result.model
+        report["logl"] = result.logl
+        report["bic"] = result.bic
+        report["n_nni"] = result.n_nni
+        report["refine_seconds"] = result.timings.get("refine_seconds")
+        if result.search is not None:
+            report["search"] = dict(result.search,
+                                    starts=args.starts,
+                                    spr_radius=args.spr_radius,
+                                    ckpt_dir=ckpt_dir)
+    if args.bootstrap > 0 and result.support is not None:
+        finite = result.support[np.isfinite(result.support)]
+        report["bootstrap"] = {
+            "replicates": args.bootstrap, "seed": args.seed,
+            "mean_support": round(float(finite.mean()), 4)
+            if finite.size else None,
+            "bootstrap_seconds": result.timings.get("bootstrap_seconds")}
     if args.tree_ll and args.alphabet != "protein":
         with _trace.span("loglik"):
             report["log_likelihood"] = float(likelihood.log_likelihood(

@@ -16,14 +16,25 @@ Backends (``TREE_BACKENDS``):
   auto      dense at or below ``cluster_threshold``; tiled above
             ``AUTO_TILED_N``; cluster otherwise
 
+Any backend's tree can then be **refined**: ``refine="ml"`` runs the
+``repro_torch.phylo.ml`` MLRefiner — branch lengths by autodiff,
+substitution model by BIC (``model="auto"``), topology by NNI;
+``refine="search"`` runs the ``repro_torch.phylo.treesearch`` multi-start
+fleet instead (``starts`` searches mixing NNI with bounded-radius SPR,
+restartable through ``ckpt_dir``/``resume``). Either mode plus
+``bootstrap=B`` attaches nonparametric bootstrap support to every
+internal edge. The alignment's site patterns are compressed once for
+both.
+
 Every distance count comes from the match/valid kernel on the card (its
-plain version with ``device="cpu"``). Not ported yet, and raising
-``NotImplementedError`` naming their ROADMAP.md item: ``refine="ml"`` and
-``"search"`` (item 9) and a ``mesh`` (item 11).
+plain version with ``device="cpu"``). A ``mesh`` is not ported yet and
+raises ``NotImplementedError`` naming ROADMAP.md §1 item 11.
 
 ``build`` returns a ``PhyloResult``: the tree arrays, the effective backend
-that ran, timings, and for the tiled backends the tile accountant's
-memory stats.
+that ran (``"<backend>+ml"``/``"+search"`` when refined), timings, for the
+tiled backends the tile accountant's memory stats, and for refined trees
+the model, logL before/after, per-model BIC, accepted moves and per-node
+support.
 """
 from __future__ import annotations
 
@@ -49,7 +60,6 @@ _M_BUILDS = _obs.counter("repro_tree_builds_total",
 
 TREE_BACKENDS = ("auto", "dense", "tiled", "cluster")
 REFINE_MODES = ("none", "ml", "search")
-_TODO_REFINE = "ROADMAP.md §1 item 9 (likelihood and ML)"
 
 # above this N, `auto` prefers the tiled pipeline even on one device: the
 # dense cluster path's (0.1 N)^2 sample matrix starts to dominate memory
@@ -65,9 +75,16 @@ class PhyloResult(NamedTuple):
     requested: str           # what the caller asked for
     timings: Dict[str, float]
     tile_stats: Optional[dict] = None   # accountant stats, tiled backends
+    logl: Optional[Dict[str, float]] = None   # {"initial", "final"} (ml)
+    model: Optional[str] = None               # fitted substitution model
+    support: Optional[np.ndarray] = None      # per-node bootstrap support
+    bic: Optional[Dict[str, float]] = None    # per-candidate-model BIC
+    n_nni: Optional[int] = None               # accepted topology moves
+    search: Optional[dict] = None             # fleet stats (refine=search)
 
     def newick(self, names=None) -> str:
-        return treeio.to_newick(self.children, self.blen, self.root, names)
+        return treeio.to_newick(self.children, self.blen, self.root, names,
+                                support=self.support)
 
 
 def resolve_tree_backend(backend: str, *, n: int, mesh=None,
@@ -112,7 +129,16 @@ class TreeEngine:
     sample_frac: float = 0.10
     seed: int = 0
     mesh: Optional[object] = None    # not ported: must be None
-    refine: str = "none"
+    refine: str = "none"             # none | ml | search
+    model: str = "auto"              # substitution model (auto = BIC)
+    bootstrap: int = 0               # bootstrap replicates (ml/search)
+    ml_steps: int = 150              # adam steps per ML fit
+    nni_rounds: int = 8              # max accepted NNI rounds
+    starts: int = 4                  # refine=search: fleet size K
+    spr_radius: int = 3              # refine=search: SPR regraft radius
+    search_rounds: int = 12          # refine=search: max move rounds
+    ckpt_dir: Optional[str] = None   # refine=search: per-round checkpoints
+    resume: bool = False             # refine=search: resume from ckpt_dir
     device: str = "cuda"
 
     def cluster_cfg(self) -> cluster_mod.ClusterConfig:
@@ -147,9 +173,14 @@ class TreeEngine:
         if self.refine not in REFINE_MODES:
             raise ValueError(f"unknown refine mode {self.refine!r}; "
                              f"expected one of {REFINE_MODES}")
-        if self.refine != "none":
-            raise NotImplementedError(
-                f"refine={self.refine!r} is not ported yet ({_TODO_REFINE})")
+        if self.refine != "none" and self.n_chars > 5:
+            raise ValueError(f"refine={self.refine!r} needs a nucleotide "
+                             "alphabet (4-state likelihood); got n_chars="
+                             f"{self.n_chars}")
+        if self.bootstrap > 0 and self.refine == "none":
+            raise ValueError("bootstrap support requires refine='ml' or "
+                             f"'search' (got bootstrap={self.bootstrap} "
+                             f"with refine={self.refine!r})")
         if cache is not None and cache_key is not None and cache_key in cache:
             return cache[cache_key]
         dev = resolve_device(self.device)
@@ -193,6 +224,11 @@ class TreeEngine:
                             msa_t, gap_code=self.gap_code,
                             n_chars=self.n_chars, cfg=self.cluster_cfg())
                 children, blen, root = cp.children, cp.blen, cp.root
+            refined = {}
+            if self.refine != "none":
+                refined = self._refine(msa_t, children, blen, root, timings)
+                children, blen, root = refined.pop("tree")
+                eff = f"{eff}+{self.refine}"
         timings["total_seconds"] = time.perf_counter() - t0
         tile_stats = None
         if eff.startswith("tiled"):
@@ -201,7 +237,65 @@ class TreeEngine:
         _M_BUILDS.labels(backend=eff).inc()
         result = PhyloResult(np.asarray(children), np.asarray(blen),
                              int(root), n, eff, self.backend, timings,
-                             tile_stats)
+                             tile_stats, **refined)
         if cache is not None and cache_key is not None:
             cache[cache_key] = result
         return result
+
+    def _refine(self, msa_t, children, blen, root, timings) -> dict:
+        """ML refinement or the search fleet, then bootstrap support, on
+        the backend's tree; returns the ``PhyloResult`` fields (and the
+        new tree under ``"tree"``)."""
+        from ..core import likelihood as lik
+        from .ml import MLRefiner
+        refiner = MLRefiner(gap_code=self.gap_code, n_chars=self.n_chars,
+                            correct=self.correct, model=self.model,
+                            steps=self.ml_steps, nni_rounds=self.nni_rounds,
+                            seed=self.seed, device=self.device)
+        # compress once; refine/search and bootstrap share the patterns
+        patterns, weights = lik.compress_patterns(msa_t)
+        out = {}
+        if self.refine == "ml":
+            with _trace.span("tree.refine", model=self.model) as sp:
+                t1 = time.perf_counter()
+                res = refiner.refine(msa_t, children, blen, root,
+                                     patterns=patterns, weights=weights)
+            n_moves = res.n_nni
+        else:
+            # the fleet builds its own starting trees (NJ among them); the
+            # backend tree above stays the distance stage's product
+            from .treesearch import TreeSearcher
+            searcher = TreeSearcher(
+                gap_code=self.gap_code, n_chars=self.n_chars,
+                correct=self.correct, starts=self.starts,
+                spr_radius=self.spr_radius, rounds=self.search_rounds,
+                model=self.model, steps=self.ml_steps, seed=self.seed,
+                ckpt_dir=self.ckpt_dir, resume=self.resume,
+                device=self.device)
+            with _trace.span("tree.refine", model=self.model,
+                             mode="search") as sp:
+                t1 = time.perf_counter()
+                res = searcher.search(msa_t, patterns=patterns,
+                                      weights=weights)
+            n_moves = int(res.n_moves.sum())
+            out["search"] = {
+                "best_start": res.best_start,
+                "start_labels": list(res.start_labels),
+                "trajectories": np.asarray(res.trajectories).tolist(),
+                "n_moves": np.asarray(res.n_moves).tolist(),
+                "round_seconds": np.asarray(res.round_seconds).tolist()}
+        timings["refine_seconds"] = (sp.duration if sp is not None
+                                     else time.perf_counter() - t1)
+        out.update(tree=(res.children, res.blen, res.root),
+                   logl={"initial": res.logl_init, "final": res.logl_final},
+                   model=res.model, bic=res.bic, n_nni=n_moves)
+        if self.bootstrap > 0:
+            with _trace.span("tree.bootstrap",
+                             replicates=self.bootstrap) as sp:
+                t1 = time.perf_counter()
+                out["support"] = refiner.bootstrap(
+                    msa_t, res.children, res.blen, res.root, self.bootstrap,
+                    patterns=patterns, weights=weights)
+            timings["bootstrap_seconds"] = (sp.duration if sp is not None
+                                            else time.perf_counter() - t1)
+        return out

@@ -118,11 +118,12 @@ def test_align_pairs_rows_and_calls_equal_reference(local):
 def test_engine_rejects_unported_backends():
     # every map(1) backend name of the reference is ported; the tree
     # engine that follows map(1) runs its cluster backend above the dense
-    # threshold and still refuses ML refinement
+    # threshold, and ML refinement on top of it
     for backend in ("auto", "jnp", "pallas", "banded", "banded-pallas"):
         tmsa.MSAConfig(backend=backend).engine("cpu")
     rows = np.random.default_rng(0).integers(0, 4, (65, 8)).astype(np.int8)
     tree = TreeEngine(gap_code=5, n_chars=5, backend="cluster", device="cpu")
     assert tree.build(rows).backend == "cluster"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dataclasses.replace(tree, refine="ml").build(rows)
+    ml = dataclasses.replace(tree, refine="ml", model="jc69", ml_steps=3,
+                             nni_rounds=0).build(rows)
+    assert ml.backend == "cluster+ml" and ml.n_nni == 0

@@ -28,6 +28,18 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread while this module runs: the port's CPU paths
+    issue many small operations, and under the suite's parallel workers
+    torch's thread pools oversubscribe the cores (my CPU runs: 10-25x
+    slower). Modules that import this fixture get it too."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _splits(newick: str, names):
     """Non-trivial bipartitions of a Newick tree, as sets of leaf names."""
     everyone = frozenset(names)
@@ -105,8 +117,21 @@ def test_msa_config_entry_points_default_to_the_card(entry, monkeypatch):
 @pytest.mark.parametrize("flags", [["--dist"], ["--dist", "--tree", "tiled"],
                                    ["--tree", "ml"],
                                    ["--tree", "ml", "--tree-ll"]])
-def test_unported_flags_name_the_roadmap(runs, flags, capsys):
-    d, _ = runs
+def test_unported_flags_name_the_roadmap(runs, flags, tmp_path, capsys):
+    """``--dist`` exits naming its roadmap item; ``--tree ml`` is ported
+    and reports its model and logL before/after."""
+    d, names = runs
+    if "ml" in flags:
+        trun.main(["--fasta", str(d / "in.fa"), "--device", "cpu",
+                   "--out", str(tmp_path), *flags])
+        report = json.loads((tmp_path / "report.json").read_text())
+        assert report["tree_backend"] == "dense+ml"
+        assert report["tree_model"] in ("jc69", "k80", "hky85", "gtr")
+        assert report["tree_logl"]["final"] >= report["tree_logl"]["initial"]
+        assert ("log_likelihood" in report) == ("--tree-ll" in flags)
+        assert len(_splits((tmp_path / "tree.nwk").read_text(),
+                           names)) == len(names) - 3
+        return
     with pytest.raises(SystemExit):
         trun.main(["--fasta", str(d / "in.fa"), "--device", "cpu", *flags])
     assert "ROADMAP.md" in capsys.readouterr().err

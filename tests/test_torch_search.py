@@ -25,7 +25,7 @@ from repro.search import seed_counts_batch as j_seed_counts
 from repro_torch.launch import search_run as trun
 from repro_torch.search import SearchConfig, SearchEngine, SearchIndex
 from repro_torch.search import seed_counts_batch
-from test_torch_msa_run import _splits
+from test_torch_msa_run import _splits, one_torch_thread  # noqa: F401
 
 GATES = dict(max_hits=6, max_evalue=1e-6)
 
@@ -165,8 +165,23 @@ def test_pipeline_family_byte_identical(pipeline_runs):
 
 @pytest.mark.parametrize("flags", [["--dist"], ["--mesh", "2x1"],
                                    ["--bootstrap", "1"]])
-def test_unported_flags_name_the_roadmap(pipeline_runs, flags, capsys):
+def test_unported_flags_name_the_roadmap(pipeline_runs, flags, tmp_path,
+                                         capsys):
+    """``--dist``/``--mesh`` exit naming their roadmap item;
+    ``--bootstrap`` is ported: the family tree is ML-refined and
+    carries support."""
     d = pipeline_runs
+    if flags[0] == "--bootstrap":
+        trun.main(["--db", str(d / "db.fasta"), "--query",
+                   str(d / "q.fasta"), "--out", str(tmp_path),
+                   "--device", "cpu", "--max-hits", "4", "--max-evalue",
+                   "1e-6", "--pipeline", "--score", "global",
+                   "--ml-steps", "10", *flags])
+        fam = json.loads((tmp_path / "report.json").read_text())[
+            "families"][0]
+        assert fam["refine"] == "ml" and fam["tree_backend"] == "dense+ml"
+        assert 0.0 <= fam["mean_support"] <= 1.0
+        return
     with pytest.raises(SystemExit):
         trun.main(["--db", str(d / "db.fasta"), "--query",
                    str(d / "q.fasta"), "--out", str(d / "never"),

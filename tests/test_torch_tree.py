@@ -94,9 +94,11 @@ def test_unported_tree_paths_raise():
     msa = _msa(7, 8)
     assert TreeEngine(gap_code=5, n_chars=5, backend="tiled",
                       device="cpu").build(msa).backend == "tiled-exact"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TreeEngine(gap_code=5, n_chars=5, refine="ml",
-                   device="cpu").build(msa)
+    # refine="ml" is ported: it runs and reports its model and logL
+    res = TreeEngine(gap_code=5, n_chars=5, refine="ml", model="k80",
+                     ml_steps=10, nni_rounds=1, device="cpu").build(msa)
+    assert res.backend == "dense+ml" and res.model == "k80"
+    assert res.logl["final"] >= res.logl["initial"]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         TreeEngine(gap_code=5, n_chars=5, backend="tiled", mesh=object(),
                    device="cpu").build(msa)

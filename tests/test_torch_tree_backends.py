@@ -483,9 +483,13 @@ def test_unported_tree_options_raise():
     with pytest.raises(NotImplementedError, match="item 11"):
         TreeEngine(gap_code=GAP, n_chars=NCH, backend="tiled", mesh=object(),
                    device="cpu").build(_rand_msa(8, 30))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TreeEngine(gap_code=GAP, n_chars=NCH, refine="search",
-                   device="cpu").build(_rand_msa(8, 30))
+    # refine="search" is ported: it runs on any backend's tree
+    res = TreeEngine(gap_code=GAP, n_chars=NCH, backend="tiled",
+                     refine="search", model="jc69", starts=2, spr_radius=1,
+                     search_rounds=1, ml_steps=5,
+                     device="cpu").build(_rand_msa(8, 30))
+    assert res.backend == "tiled-exact+search" and res.model == "jc69"
+    assert len(res.search["trajectories"]) == 2
 
 
 # -------------------------------------------------------------- likelihood

@@ -8,8 +8,9 @@ and keys, and the JC69 log-likelihood at rtol=1e-5. Trees: a single NJ
 tree (dense, tiled-exact, the small-N cluster branch) at RF 0; an HPTree
 tree as ``tests/test_torch_tree_backends.py`` compares it (NJ roots each
 cluster by rounding), on the engine results the launchers write out. The
-port's flags that are not ported exit naming their ROADMAP.md item, and
-``--device cuda`` without a card raises.
+port's refinement flags run (each checked on its report field), ``--dist``
+and ``--mesh`` exit naming their ROADMAP.md item, and ``--device cuda``
+without a card raises.
 """
 import json
 
@@ -28,7 +29,7 @@ from repro.phylo import TreeEngine as JTreeEngine
 from repro_torch.launch import msa_run as tmsa_run
 from repro_torch.launch import tree_run as ttree_run
 from repro_torch.phylo import TreeEngine
-from test_torch_msa_run import _splits
+from test_torch_msa_run import _splits, one_torch_thread  # noqa: F401
 from repro_torch.core import cluster as tcluster
 from test_torch_tree_backends import assert_same_hptree, clades, streamed_stats
 
@@ -134,17 +135,79 @@ def test_tree_run_dense_tree_and_loglik(tree_runs, aligned):
         _report(tree_runs, "jax_dense")["log_likelihood"], rtol=1e-5)
 
 
+# the refinement flags (ROADMAP §1 item 9) run on 10 of the rows, each
+# checked on its report field; --dist and --mesh still exit naming
+# item 11. Base settings keep every refinement to a few Adam steps.
+_ML = ["--refine", "ml", "--model", "jc69", "--ml-steps", "5",
+       "--nni-rounds", "1"]
+_SEARCH = ["--refine", "search", "--model", "jc69", "--ml-steps", "5",
+           "--starts", "2", "--spr-radius", "1", "--search-rounds", "1"]
+_RUNS = {
+    "--refine ml": (_ML, lambda r, d: r["refine"] == "ml"
+                    and r["backend"] == "dense+ml"),
+    "--refine search": (_SEARCH, lambda r, d: r["refine"] == "search"
+                        and r["backend"] == "dense+search"),
+    "--bootstrap": (_ML + ["--bootstrap", "5"],
+                    lambda r, d: r["bootstrap"]["replicates"] == 5
+                    and 0 <= r["bootstrap"]["mean_support"] <= 1),
+    "--restartable": (_SEARCH + ["--restartable"],
+                      lambda r, d: r["search"]["ckpt_dir"]
+                      == str(d / "search_ckpt")
+                      and (d / "search_ckpt").is_dir()),
+    "--ckpt-dir": (_SEARCH + ["--ckpt-dir", "CK"],
+                   lambda r, d: r["search"]["ckpt_dir"] == str(d / "ck")
+                   and (d / "ck").is_dir()),
+    "--resume": (_SEARCH + ["--restartable", "--resume"],
+                 lambda r, d: len(r["search"]["trajectories"]) == 2),
+    "--model": (_ML[:2] + ["--model", "k80", "--ml-steps", "5",
+                           "--nni-rounds", "0"],
+                lambda r, d: r["model"] == "k80" and set(r["bic"]) == {"k80"}),
+    "--ml-steps": (_ML[:4] + ["--ml-steps", "0", "--nni-rounds", "0"],
+                   lambda r, d: abs(r["logl"]["final"] - r["logl"]["initial"])
+                   <= 1e-4 * abs(r["logl"]["initial"])),
+    "--nni-rounds": (_ML[:6] + ["--nni-rounds", "0"],
+                     lambda r, d: r["n_nni"] == 0),
+    "--starts": (_SEARCH[:8] + ["--starts", "3"] + _SEARCH[8:],
+                 lambda r, d: r["search"]["starts"] == 3
+                 and r["search"]["start_labels"] == ["nj", "cluster",
+                                                     "random2"]),
+    "--spr-radius": (_SEARCH, lambda r, d: r["search"]["spr_radius"] == 1),
+    "--search-rounds": (_SEARCH,
+                        lambda r, d: len(r["search"]["round_seconds"]) == 2),
+}
+
+
+@pytest.fixture(scope="module")
+def small(aligned):
+    d, names, msa = aligned
+    fa = d / "small.fa"
+    write_fasta(fa, names[:10], [jab.DNA.decode(r) for r in msa[:10]])
+    return fa
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--refine", "ml"], "item 9"), (["--refine", "search"], "item 9"),
-    (["--bootstrap", "5"], "item 9"), (["--restartable"], "item 9"),
-    (["--ckpt-dir", "ck"], "item 9"), (["--resume"], "item 9"),
-    (["--model", "gtr"], "item 9"), (["--ml-steps", "10"], "item 9"),
-    (["--nni-rounds", "2"], "item 9"), (["--starts", "2"], "item 9"),
-    (["--spr-radius", "1"], "item 9"), (["--search-rounds", "3"], "item 9"),
+    (["--bootstrap"], "item 9"), (["--restartable"], "item 9"),
+    (["--ckpt-dir"], "item 9"), (["--resume"], "item 9"),
+    (["--model"], "item 9"), (["--ml-steps"], "item 9"),
+    (["--nni-rounds"], "item 9"), (["--starts"], "item 9"),
+    (["--spr-radius"], "item 9"), (["--search-rounds"], "item 9"),
     (["--dist"], "item 11"), (["--mesh", "2x1"], "item 11")])
-def test_tree_run_unported_flags_name_the_roadmap(aligned, flags, item,
-                                                  capsys):
+def test_tree_run_unported_flags_name_the_roadmap(aligned, small, flags,
+                                                  item, tmp_path, capsys):
+    """Item 9's flags are ported: each runs on the CPU and shows in its
+    report field. Item 11's still exit naming the roadmap item."""
     d, _, _ = aligned
+    if item == "item 9":
+        argv, check = _RUNS[" ".join(flags)]
+        out = tmp_path / "out"
+        argv = [str(out / "ck") if a == "CK" else a for a in argv]
+        ttree_run.main(["--fasta", str(small), "--device", "cpu",
+                        "--out", str(out), *argv])
+        report = _report(tmp_path, "out")
+        assert check(report, out), report
+        assert (out / "tree.nwk").read_text().count(",") == 9
+        return
     with pytest.raises(SystemExit):
         ttree_run.main(["--fasta", str(d / "aligned.fa"), "--device", "cpu",
                         "--out", str(d / "never"), *flags])
