@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero:
 
   1. print the card's name and power limit (nvidia-smi);
-  2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+  2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      each, started together) and print the build seconds;
   3. hold the Gotoh forward kernel bit-exact against its plain PyTorch
      version, global and local, at the segment shape (B=16384, 64x64),
@@ -77,8 +77,22 @@ Phases, in order; any failure exits non-zero:
      then ``tree_run --refine search --restartable`` once;
  16. ``search_run --pipeline --bootstrap 25`` on phase 8's database and
      queries: every family tree ML-refined with support labels;
- then hold kernels 1 and 2 on phase 13's largest calls, and print each
- kernel on its own path as one JSON line.
+ then hold kernels 1 and 2 on phase 13's largest calls;
+ 17. LM serving: hold the flash-attention kernel (kernel 5) against its
+     plain version (f32 within 2e-5; bf16 within half a bf16 ulp of the
+     plain version's f32 result, plus 2e-5) at the four dense configs'
+     head layouts (H/KH/D 32/8/64, 16/16/64, 8/1/256, 32/8/120), S = 2,048
+     causal, not causal and window 64, window 4,096 at S = 8,192, ragged
+     S = 1, 37 and 1,000, f32 and bf16; run ``repro_torch.launch.serve
+     --arch h2o-danube-3-4b --batch 4 --prompt-len 8192 --gen 32`` at full
+     width (random weights, seed 0): kernel 5 launched once per layer (24),
+     finite logits, tokens in the vocabulary, and print prefill ms, decode
+     ms per token and the device peak above the memory in use at its
+     start; check prefill/decode continuity at
+     full width (B = 1, f32, 8,192 tokens against 8,191 + one decode step,
+     atol 2e-3); time kernel 5 at the serve shape beside its bound, its
+     plain version and ``scaled_dot_product_attention``;
+ and print each kernel on its own path as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -1276,6 +1290,239 @@ def _ml_phases(work: Path, route: str):
     return obs
 
 
+# ---------------------------------------------------------------- LM serving
+
+SERVE_ARCH = "h2o-danube-3-4b"   # full width: 24 layers, 32/8 heads of 120
+SERVE_ARGS = ("--batch", "4", "--prompt-len", "8192", "--gen", "32")
+BF16_OPS_PER_S = 989e12
+# (H, KH, D) of the dense configs at full width: llama3.2-1b, qwen1.5-0.5b,
+# gemma-2b, h2o-danube-3-4b
+FLASH_LAYOUTS = ((32, 8, 64), (16, 16, 64), (8, 1, 256), (32, 8, 120))
+# kernel 5 against its plain version's f32 result on the same inputs (bf16
+# inputs upcast exactly): in f32 within the JAX package's own tolerance
+# (tests/test_kernels_flash.py); in bf16 the kernel's f32 result, rounded
+# once to bf16, is within half a bf16 ulp of it (<= 2^-8 |x|) plus that
+# tolerance. The JAX tests' bf16 atol of 2e-2 is the size of a typical
+# output at these shapes (~sqrt(e / keys)) and would pass a wrong kernel.
+FLASH_ATOL = 2e-5
+FLASH_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
+# prefill of S tokens vs prefill of S - 1 plus one decode step, f32
+# throughout (weights, activations, cache): the two differ only in the
+# order of f32 sums (the kernel's key tiles against one softmax over the
+# ring cache, GEMMs of S rows against 1), ~1e-6 relative per operation; the
+# bound is the JAX package's own continuity tolerance (tests/test_models.py)
+CONTINUITY_ATOL = 2e-3
+
+
+def flash_inputs(B, S, H, KH, D, dtype, seed, device="cuda"):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
+                 for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D)))
+
+
+def unmasked_pairs(S: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a causal / windowed mask keeps over S x S."""
+    pos = np.arange(S)
+    hi = pos if causal else np.full(S, S - 1)
+    lo = np.maximum(0, pos - window + 1) if window > 0 else np.zeros(S, int)
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def flash_plain32(q, k, v, **kw):
+    """The plain version's f32 result on (exactly upcast) inputs."""
+    from repro_torch.kernels.flash_attention import ref
+    return ref.blocked_attention(q.float(), k.float(), v.float(), **kw)
+
+
+def flash_error(out, plain32):
+    """(largest |out - plain32|, largest excess over the limit); the
+    output passes when the excess is <= 0."""
+    d = (out.float() - plain32).abs()
+    rtol = FLASH_RTOL[str(out.dtype).split(".")[1]]
+    excess = (d - rtol * plain32.abs()).max() - FLASH_ATOL
+    return float(d.max()), float(excess)
+
+
+def check_flash(B, S, H, KH, D, causal, window, dtype, seed,
+                device="cuda") -> float:
+    """Kernel 5 against its plain version on the same inputs; raises above
+    the limit, returns the largest difference."""
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = flash_inputs(B, S, H, KH, D, dtype, seed, device)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window)
+    out = ops.attention(q, k, v, **kw)
+    err, excess = flash_error(out, flash_plain32(q, k, v, **kw))
+    if out.dtype != dtype or out.shape != q.shape or not excess <= 0:
+        fail(f"flash_attention differs from its plain version at B={B} "
+             f"S={S} H/KH/D={H}/{KH}/{D} causal={causal} window={window} "
+             f"{dtype}: {err}, {excess} over the limit")
+    return err
+
+
+def flash_checks(device="cuda") -> float:
+    import torch
+    cases = []
+    for H, KH, D in FLASH_LAYOUTS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal, window in ((True, 0), (False, 0), (True, 64)):
+                cases.append((1, 2048, H, KH, D, causal, window, dtype))
+            cases.append((2, 1000, H, KH, D, True, 64, dtype))     # ragged
+            cases.append((2, 37, H, KH, D, False, 0, dtype))
+            cases.append((3, 1, H, KH, D, True, 0, dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((1, 8192, 32, 8, 120, True, 4096, dtype))
+        cases.append((1, 2048, 32, 8, 120, False, 64, dtype))
+    t0 = time.time()
+    err = max(check_flash(*c, seed=i, device=device)
+              for i, c in enumerate(cases))
+    print(f"flash_attention within its limits of its plain version at "
+          f"{len(cases)} shapes (largest difference {err}) in "
+          f"{time.time() - t0:.1f} s")
+    return err
+
+
+def serve_phase(device="cuda", smoke=False) -> int:
+    """``repro_torch.launch.serve`` at full width, with kernel 5's launch
+    count reset just before it; returns the count. The peak is the run's
+    own: above the memory in use at its start."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    spec = get_arch(SERVE_ARCH)
+    cfg = spec.smoke if smoke else spec.config
+    argv = ["--arch", SERVE_ARCH, *SERVE_ARGS] + (["--smoke"] if smoke
+                                                  else [])
+    if device != "cuda":
+        argv += ["--device", device]
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    reset_peak()
+    t0 = time.time()
+    ops.launches = 0
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = ops.launches
+    wall = time.time() - t0
+    tokens, logits = res["tokens"], res["logits"]
+    B, gen = int(SERVE_ARGS[1]), int(SERVE_ARGS[5])
+    print(f"serve {cfg.name} {' '.join(SERVE_ARGS)}: prefill "
+          f"{res['prefill_ms']:.1f} ms, decode "
+          f"{res['decode_ms_per_token']:.2f} ms/token, wall {wall:.2f} s "
+          f"(weights included), peak device memory "
+          f"{(device_peak() - base) / 2**30:.3f} GiB above the "
+          f"{base / 2**30:.3f} GiB in use at its start, flash_attention "
+          f"launches {launches}")
+    if launches != cfg.n_layers:
+        fail(f"serve launched flash_attention {launches} times, not once "
+             f"per layer ({cfg.n_layers})")
+    if tuple(tokens.shape) != (B, gen) or \
+            tuple(logits.shape) != (B, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()) or \
+            not bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"serve: tokens {tuple(tokens.shape)} in "
+             f"[{int(tokens.min())}, {int(tokens.max())}], logits "
+             f"{tuple(logits.shape)}, finite {bool(torch.isfinite(logits).all())}")
+    return launches
+
+
+def continuity_check(device="cuda", smoke=False, S=8192) -> float:
+    """Last-token logits of a prefill of S tokens against a prefill of
+    S - 1 plus one decode step, B = 1, f32 throughout."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    spec = get_arch(SERVE_ARCH)
+    cfg = spec.smoke if smoke else spec.config
+    t0 = time.time()
+    params = tt.init_params(cfg, 0, device=device)
+    g = torch.Generator(device=device).manual_seed(2)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                         device=device)
+    f32 = dict(logits_mode="last", compute_dtype=torch.float32)
+    full, _, _ = tt.apply_model(params, cfg, {"tokens": toks}, **f32)
+    cache = tt.init_cache(cfg, 1, S, dtype=torch.float32, device=device)
+    _, cache, _ = tt.apply_model(params, cfg, {"tokens": toks[:, :-1]},
+                                 cache=cache, **f32)
+    pos = torch.full((1, 1), S - 1, dtype=torch.int32, device=device)
+    dec, _, _ = tt.apply_model(params, cfg, {"tokens": toks[:, -1:],
+                                             "positions": pos},
+                               cache=cache, **f32)
+    err = float((dec - full).abs().max())
+    print(f"continuity {cfg.name}, f32, prefill {S} vs {S - 1} + 1 decode: "
+          f"max |logit difference| {err} (logits up to "
+          f"{float(full.abs().max()):.3f}; bound {CONTINUITY_ATOL}), "
+          f"{time.time() - t0:.1f} s")
+    if not err <= CONTINUITY_ATOL:
+        fail(f"continuity: {err} > {CONTINUITY_ATOL}")
+    return err
+
+
+def time_flash():
+    """Kernel 5 at the serve shape beside its bound, its plain version and
+    ``scaled_dot_product_attention`` (the port never calls it); returns
+    (timings, largest difference from the plain version)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops, ref
+    B, S, H, KH, D, W = 4, 8192, 32, 8, 120, 4096
+    q, k, v = flash_inputs(B, S, H, KH, D, torch.bfloat16, seed=99)
+    kw = dict(scale=D ** -0.5, causal=True, window=W)
+    ms, out = cuda_ms(lambda: ops.attention(q, k, v, **kw))
+    plain_ms, plain = cuda_ms(lambda: ref.blocked_attention(q, k, v, **kw),
+                              reps=1)
+    del plain
+    err, excess = flash_error(out, flash_plain32(q, k, v, **kw))
+    if not excess <= 0:
+        fail(f"flash_attention at the serve shape: {err}, {excess} over "
+             "the limit")
+    # the yardstick: one SDPA call with the window mask and GQA, on
+    # (B, H, S, D) copies made outside the timing
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    pos = torch.arange(S, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                          SDPBackend.CUDNN_ATTENTION,
+                          SDPBackend.FLASH_ATTENTION]):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=kw["scale"],
+                enable_gqa=True)
+    lib_ms, lib = cuda_ms(sdpa)
+    lib_err = float((lib.transpose(1, 2).float() - out.float()).abs().max())
+    pairs = unmasked_pairs(S, True, W) * B * H
+    t_ops = pairs * 4 * D / BF16_OPS_PER_S * 1e3
+    t_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
+        / HBM_BYTES_PER_S * 1e3
+    timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+                  bound_by="operations" if t_ops >= t_bytes else "bytes",
+                  library_ms=lib_ms)
+    print(f"flash_attention at the serve shape {B}x{H}x{S}x{D} (KH {KH}, "
+          f"window {W}, bf16, {pairs} unmasked pairs): {json.dumps(timing)}"
+          f"; sdpa differs from the kernel by {lib_err}")
+    return timing, err
+
+
+def lm_phase(device="cuda", smoke=False):
+    """Phase 17: returns kernel 5's serve-run launches, its timings at the
+    serve shape and its largest difference from the plain version."""
+    import torch
+    err = flash_checks(device)
+    launches = serve_phase(device, smoke)
+    continuity_check(device, smoke, S=48 if smoke else 8192)
+    if device != "cuda":
+        return launches, None, err
+    torch.cuda.empty_cache()
+    timing, e = time_flash()
+    return launches, timing, max(err, e)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1376,6 +1623,8 @@ def main() -> int:
     err["gotoh_forward"] = max(err["gotoh_forward"], e["gotoh_forward"])
     mv_err = max(mv_err, hold_tree_calls(ml_run))
 
+    fa_launches, fa, fa_err = lm_phase()
+
     kernels = [
         dict(name="gotoh_forward", route="cuda",
              source="src/repro_torch/csrc/sw_forward.cu",
@@ -1400,6 +1649,10 @@ def main() -> int:
              launches=fused_obs.launches["banded_fused"],
              max_abs_err=err["banded_fused"],
              **fu),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_kernel.py:87",
+             launches=fa_launches, max_abs_err=fa_err, **fa),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

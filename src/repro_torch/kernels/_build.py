@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("sw_forward", "match_valid", "banded_forward", "banded_fused")
+SOURCES = ("sw_forward", "match_valid", "banded_forward", "banded_fused",
+           "flash_attention")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,0 +1,109 @@
+"""LM serving launcher on PyTorch: batched prefill + decode loop with a KV
+cache; the port of ``repro.launch.serve``.
+
+This is the *language-model* serving path (one-shot benchmark of the
+``train.serve_step`` prefill/decode step factories), not the MSA
+service.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch h2o-danube-3-4b [--smoke] [--batch 4 --prompt-len 32 --gen 16] \
+      [--device cuda|cpu]
+
+Flags:
+  --arch          architecture name (repro_torch.configs registry)
+  --batch         concurrent decode sequences
+  --prompt-len    prefill length (tokens)
+  --gen           tokens to generate per sequence
+  --smoke         use the reduced smoke config (CPU-friendly)
+  --device        the card (``cuda``, the default; raises without one) or
+                  the plain PyTorch path (``cpu``)
+
+The weights are random f32 master weights from a ``torch.Generator``
+seeded 0 (``models.transformer.init_params``), the prompt random tokens
+from one seeded 1. Prints the reference's two lines. Only the dense
+attention family is ported: an encoder-only architecture exits as in the
+reference, the MoE, SSM, hybrid and VLM ones exit naming ROADMAP.md §1
+item 14.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="repro_torch.launch.serve",
+        description="LM serving benchmark: batched prefill + decode with "
+                    "a KV cache (PyTorch/CUDA port)")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="run on the card (default; raises without one) "
+                         "or on the plain PyTorch path on the CPU")
+    return ap
+
+
+def main(argv=None):
+    """Run the benchmark; returns a dict with the generated ``tokens``
+    (B, gen), the last ``logits`` (B, V) and ``prefill_ms`` /
+    ``decode_ms_per_token`` (host clock around work that ends in a device
+    sync)."""
+    args = build_parser().parse_args(argv)
+
+    from ..configs import get_arch
+    from ..models.transformer import PORTED_FAMILIES
+
+    spec = get_arch(args.arch)
+    cfg = spec.smoke if args.smoke else spec.config
+    if not cfg.has_decode:
+        raise SystemExit(f"{args.arch} is encoder-only; no decode")
+    if cfg.family not in PORTED_FAMILIES:
+        raise SystemExit(f"{args.arch}: the {cfg.family!r} family is not "
+                         "ported yet (ROADMAP.md §1 item 14)")
+
+    import torch
+
+    from ..device import resolve_device, sync
+    from ..models.transformer import init_params
+    from ..train.serve_step import make_decode_step, make_prefill_step
+
+    dev = resolve_device(args.device)
+    params = init_params(cfg, 0, device=dev)
+    max_len = args.prompt_len + args.gen
+    prefill = make_prefill_step(cfg, max_len=max_len)
+    decode = make_decode_step(cfg)
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                         generator=gen, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": toks})
+    sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    out = [torch.argmax(logits, -1).to(torch.int32)]
+    pos = torch.full((args.batch,), args.prompt_len, dtype=torch.int32,
+                     device=dev)
+    t0 = time.perf_counter()
+    for _ in range(args.gen - 1):
+        logits, cache = decode(params, cache, out[-1], pos)
+        out.append(torch.argmax(logits, -1).to(torch.int32))
+        pos = pos + 1
+    sync(dev)
+    t_decode = time.perf_counter() - t0
+    tokens = torch.stack(out, 1)
+    decode_ms = t_decode / max(args.gen - 1, 1) * 1e3
+    print(f"prefill {args.batch}x{args.prompt_len}: {t_prefill * 1e3:.1f} "
+          f"ms; decode {args.gen - 1} steps: {decode_ms:.1f} ms/tok")
+    print("sample tokens:", tokens[0][:10].tolist())
+    return {"tokens": tokens, "logits": logits,
+            "prefill_ms": t_prefill * 1e3, "decode_ms_per_token": decode_ms}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,133 @@
+"""Port parity: the flash-attention wrappers and their plain versions.
+
+On a CPU tensor ``repro_torch.kernels.flash_attention.ops`` runs the
+kernel's plain version (the blocked online-softmax schedule). It is held
+against the reference Pallas kernel in interpret mode on the grid of
+``tests/test_kernels_flash.py``, at that file's tolerances: f32 atol 2e-5
+(the two sum the same f32 products in another order), bf16 2e-2 (one bf16
+rounding of the output, ~4e-3 relative, on values up to ~3), gradients
+through the ``autograd.Function`` atol 1e-4. The LM-layout entry
+(``ops.attention``, with ``q_offset`` and T != S) is held against the
+reference's ``models.layers.xla_flash`` at ragged lengths, where the
+kernel masks a short last tile.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention as j_flash
+from repro.kernels.flash_attention.ref import attention_ref as j_attention_ref
+from repro.models import layers as jlayers
+from repro_torch.kernels.flash_attention import ops, ref
+
+GRID = [
+    (2, 4, 2, 256, 64, True, 0),
+    (1, 8, 1, 128, 32, True, 64),     # MQA + sliding window
+    (2, 4, 4, 256, 64, False, 0),     # encoder
+    (1, 2, 2, 512, 128, True, 128),
+]
+
+
+def _qkv(seed, B, H, KH, S, D, T=None):
+    rng = np.random.default_rng(seed)
+    T = S if T is None else T
+    return (rng.normal(0, 1, (B, H, S, D)).astype(np.float32),
+            rng.normal(0, 1, (B, KH, T, D)).astype(np.float32),
+            rng.normal(0, 1, (B, KH, T, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,H,KH,S,D,causal,window", GRID)
+def test_plain_version_matches_pallas_f32(B, H, KH, S, D, causal, window):
+    q, k, v = _qkv(S + D, B, H, KH, S, D)
+    scale = 1.0 / np.sqrt(D)
+    want = j_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+                   causal, window, 64, 64, True)
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), scale, causal, window)
+    assert got.shape == (B, H, S, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    oracle = ref.attention_ref(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), scale=scale,
+                               causal=causal, window=window)
+    j_oracle = j_attention_ref(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), scale=scale, causal=causal,
+                               window=window)
+    np.testing.assert_allclose(oracle.numpy(), np.asarray(j_oracle),
+                               atol=2e-5)
+
+
+def test_plain_version_matches_pallas_bf16():
+    q, k, v = _qkv(7, 2, 4, 2, 256, 64)
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = j_flash(*jb, 0.125, True, 0, 128, 128, True)
+    tb = [torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16()
+          for x in jb]
+    got = ops.flash_attention(*tb, 0.125, True, 0)
+    assert got.dtype == torch.bfloat16
+    err = np.max(np.abs(got.float().numpy()
+                        - np.asarray(want, np.float32)))
+    assert err < 2e-2
+
+
+def test_gradients_match_reference():
+    q, k, v = _qkv(3, 1, 2, 2, 128, 32)
+
+    def f_jax(q, k, v):
+        return jnp.sum(j_flash(q, k, v, 0.17, True, 0, 64, 64, True) ** 2)
+
+    want = jax.grad(f_jax, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    (ops.flash_attention(tq, tk, tv, 0.17, True, 0) ** 2).sum().backward()
+    for g, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-4)
+
+
+@pytest.mark.parametrize("S,T,q_offset,causal,window", [
+    (1, 1, 0, True, 0),
+    (37, 37, 0, True, 0),
+    (37, 37, 0, False, 16),
+    (1, 40, 39, True, 8),               # one query after a prefix
+    (50, 1100, 1050, True, 300),        # ragged key chunk past 1,024
+    (70, 70, 0, False, 0),
+])
+def test_lm_layout_matches_xla_flash(S, T, q_offset, causal, window):
+    B, H, KH, D = 2, 4, 2, 8
+    q, k, v = _qkv(S + T, B, H, KH, S, D, T)
+    q, k, v = (np.ascontiguousarray(x.transpose(0, 2, 1, 3))
+               for x in (q, k, v))                     # (B, S, H, D)
+    want = jlayers.xla_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             scale=0.3, causal=causal, window=window,
+                             q_offset=q_offset)
+    got = ops.attention(torch.from_numpy(q), torch.from_numpy(k),
+                        torch.from_numpy(v), scale=0.3, causal=causal,
+                        window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+def test_strided_views_equal_contiguous():
+    """The LM entry reads the projections' views as they are; the (B, H, S,
+    D) entry hands the same data through transposed strides."""
+    q, k, v = _qkv(11, 1, 4, 2, 45, 16)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    a = ops.flash_attention(tq, tk, tv, 0.25, True, 20)
+    b = ops.attention(tq.transpose(1, 2), tk.transpose(1, 2),
+                      tv.transpose(1, 2), scale=0.25, causal=True, window=20)
+    torch.testing.assert_close(a, b.transpose(1, 2), rtol=0, atol=0)
+
+
+def test_wrapper_checks_and_no_silent_path():
+    q, k, v = map(torch.from_numpy, _qkv(5, 1, 4, 2, 8, 8))
+    with pytest.raises(ValueError):
+        ops.flash_attention(q, k[:, :1].expand(1, 3, 8, 8), v, 0.3)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), k.double(), v.double(), 0.3)
+    with pytest.raises(ValueError):
+        ops.attention(q.to("meta"), k.to("meta"), v.to("meta"), scale=0.3,
+                      causal=True)
+    with pytest.raises(RuntimeError):
+        ops.attention(q.requires_grad_(), k, v, scale=0.3, causal=True)
+    launches = ops.launches
+    ops.attention(q.detach(), k, v, scale=0.3, causal=True)
+    assert ops.launches == launches          # the CPU runs no kernel
