@@ -83,7 +83,12 @@ Phases, in order; any failure exits non-zero:
      plain version's f32 result, plus 2e-5) at the four dense configs'
      head layouts (H/KH/D 32/8/64, 16/16/64, 8/1/256, 32/8/120), S = 2,048
      causal, not causal and window 64, window 4,096 at S = 8,192, ragged
-     S = 1, 37 and 1,000, f32 and bf16; run ``repro_torch.launch.serve
+     S = 1, 37 and 1,000, D = 8 and 32 (padded to 64), D = 60, 100 and
+     250 and K/V expanded over the KV heads (head stride 0) at D = 64,
+     120 and 256 (the bf16 kernel's element route at each padded head
+     dim), 1,000 queries at q_offset 2,000 over 3,000 keys, and the (B, H,
+     S, D) entry ``ops.flash_attention`` (transposed strides), f32 and bf16;
+     run ``repro_torch.launch.serve
      --arch h2o-danube-3-4b --batch 4 --prompt-len 8192 --gen 32`` at full
      width (random weights, seed 0): kernel 5 launched once per layer (24),
      finite logits, tokens in the vocabulary, and print prefill ms, decode
@@ -1314,11 +1319,12 @@ FLASH_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -8}
 CONTINUITY_ATOL = 2e-3
 
 
-def flash_inputs(B, S, H, KH, D, dtype, seed, device="cuda"):
+def flash_inputs(B, S, H, KH, D, dtype, seed, device="cuda", T=None):
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
+    T = S if T is None else T
     return tuple(torch.randn(shape, generator=g, device=device).to(dtype)
-                 for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, D)))
+                 for shape in ((B, S, H, D), (B, T, KH, D), (B, T, KH, D)))
 
 
 def unmasked_pairs(S: int, causal: bool, window: int) -> int:
@@ -1345,22 +1351,37 @@ def flash_error(out, plain32):
 
 
 def check_flash(B, S, H, KH, D, causal, window, dtype, seed,
-                device="cuda") -> float:
-    """Kernel 5 against its plain version on the same inputs; raises above
-    the limit, returns the largest difference."""
+                device="cuda", T=None, q_offset=0, bhsd=False,
+                shared_kv=False) -> float:
+    """Kernel 5 against its plain version on the same inputs, through
+    ``ops.attention`` on (B, S, H, D) tensors, or with ``bhsd`` through
+    ``ops.flash_attention`` on (B, H, S, D) ones (transposed strides);
+    ``shared_kv`` expands KV head 0 over all KH (head stride 0). Raises
+    above the limit, returns the largest difference."""
     from repro_torch.kernels.flash_attention import ops
-    q, k, v = flash_inputs(B, S, H, KH, D, dtype, seed, device)
+    q, k, v = flash_inputs(B, S, H, KH, D, dtype, seed, device, T)
+    if shared_kv:
+        k, v = (x[:, :, :1].expand_as(x) for x in (k, v))
     kw = dict(scale=D ** -0.5, causal=causal, window=window)
-    out = ops.attention(q, k, v, **kw)
-    err, excess = flash_error(out, flash_plain32(q, k, v, **kw))
+    if bhsd:
+        out = ops.flash_attention(*(x.transpose(1, 2).contiguous()
+                                    for x in (q, k, v)), **kw).transpose(1, 2)
+    else:
+        out = ops.attention(q, k, v, q_offset=q_offset, **kw)
+    err, excess = flash_error(out, flash_plain32(q, k, v, q_offset=q_offset,
+                                                 **kw))
     if out.dtype != dtype or out.shape != q.shape or not excess <= 0:
         fail(f"flash_attention differs from its plain version at B={B} "
-             f"S={S} H/KH/D={H}/{KH}/{D} causal={causal} window={window} "
+             f"S={S} T={T} H/KH/D={H}/{KH}/{D} causal={causal} "
+             f"window={window} q_offset={q_offset} bhsd={bhsd} "
+             f"shared_kv={shared_kv} "
              f"{dtype}: {err}, {excess} over the limit")
     return err
 
 
-def flash_checks(device="cuda") -> float:
+def flash_cases():
+    """(B, S, H, KH, D, causal, window, dtype[, check_flash keywords]) of
+    every shape kernel 5 is held at."""
     import torch
     cases = []
     for H, KH, D in FLASH_LAYOUTS:
@@ -1373,8 +1394,31 @@ def flash_checks(device="cuda") -> float:
     for dtype in (torch.float32, torch.bfloat16):
         cases.append((1, 8192, 32, 8, 120, True, 4096, dtype))
         cases.append((1, 2048, 32, 8, 120, False, 64, dtype))
+        # D <= 32: padded to 64 columns, zeros past D
+        cases.append((2, 300, 4, 2, 32, True, 128, dtype))
+        cases.append((1, 200, 2, 1, 8, False, 0, dtype))
+        # the bf16 kernel's element route at each padded head dim (64, 128,
+        # 256): D % 8 != 0, and K/V expanded over the KV heads (a head
+        # stride of 0, which TMA cannot take)
+        for D in (60, 100, 250):
+            cases.append((2, 300, 4, 2, D, True, 128, dtype))
+        for D in (64, 120, 256):
+            cases.append((2, 700, 8, 2, D, True, 256, dtype,
+                          dict(shared_kv=True)))
+        # a continued prefill: 1,000 queries at positions 2,000.. over
+        # 3,000 keys
+        cases.append((1, 1000, 8, 2, 64, True, 1024, dtype,
+                      dict(T=3000, q_offset=2000)))
+        # the (B, H, S, D) entry, transposed strides
+        cases.append((2, 700, 8, 2, 120, True, 256, dtype, dict(bhsd=True)))
+    return cases
+
+
+def flash_checks(device="cuda") -> float:
+    cases = flash_cases()
     t0 = time.time()
-    err = max(check_flash(*c, seed=i, device=device)
+    err = max(check_flash(*c[:8], seed=i, device=device,
+                          **(c[8] if len(c) > 8 else {}))
               for i, c in enumerate(cases))
     print(f"flash_attention within its limits of its plain version at "
           f"{len(cases)} shapes (largest difference {err}) in "

@@ -131,3 +131,38 @@ def test_wrapper_checks_and_no_silent_path():
     launches = ops.launches
     ops.attention(q.detach(), k, v, scale=0.3, causal=True)
     assert ops.launches == launches          # the CPU runs no kernel
+
+
+def test_three_bf16_terms_hold_p_exactly():
+    """The premise of the bf16 kernel's P.V on the tensor cores: each f32 p
+    (an exp of a score at most 0) splits into p1 = bf16(p), p2 = bf16(p -
+    p1), p3 = bf16(p - p1 - p2), which sum back to p exactly in f32 while
+    the residuals stay normal (p >= 2^-80), and each term's product with a
+    bf16 v is exact in f32; below that the sum misses by far less than the
+    kernel's 2e-5 limit. Two terms miss by at most 2^-17 of p, one term (p
+    rounded to bf16) by more than 2^-10 somewhere."""
+    rng = np.random.default_rng(16)
+    scores = rng.uniform(-104.0, 0.0, 200_000).astype(np.float32)
+    p = torch.cat([torch.exp(torch.from_numpy(scores)),
+                   torch.tensor([0.0, 1.0])])
+    t1 = p.bfloat16()
+    r1 = p - t1.float()
+    t2 = r1.bfloat16()
+    t3 = (r1 - t2.float()).bfloat16()
+    terms = [t.float() for t in (t1, t2, t3)]
+    normal = p >= 2.0 ** -80
+    assert 0 < int((~normal).sum()) < p.numel()
+    total = terms[0] + terms[1] + terms[2]
+    assert torch.equal(total[normal], p[normal])
+    assert float((total - p).abs().max()) <= 1e-38
+    mag = torch.from_numpy(rng.uniform(0.01, 4.0, p.numel()).astype(
+        np.float32))
+    v = (mag * torch.from_numpy(rng.choice([-1.0, 1.0], p.numel()).astype(
+        np.float32))).bfloat16().float()
+    for t in terms:
+        exact = t.double() * v.double()
+        assert torch.equal((t * v).double()[normal], exact[normal])
+    rel2 = ((terms[0] + terms[1]) - p).abs()[normal] / p[normal]
+    rel1 = (terms[0] - p).abs()[normal] / p[normal]
+    assert float(rel2.max()) <= 2.0 ** -17
+    assert float(rel1.max()) > 2.0 ** -10

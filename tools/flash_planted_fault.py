@@ -5,17 +5,19 @@ reject planted faults.
     python3 tools/flash_planted_fault.py      # one NVIDIA H100 and nvcc
 
 Builds copies of ``src/repro_torch/csrc/flash_attention.cu``, each with one
-fault, into ``build/repro_torch/fault/`` (the source in the tree is not
-touched): ``window_edge`` drops the sliding-window mask in the first key
-tile each q tile visits (up to 64 keys older than the window leak into a
-row), ``window_off_by_one`` lets one such key in, ``p_bf16`` rounds the
-softmax numerators to bf16 before P.V (the reference keeps them in f32).
-On the windowed bf16 and f32 inputs ``chip_smoke.py`` holds the kernel
-to, it runs the kernel and each copy through the same wrapper and prints,
-for each, the largest difference from the plain version, the excess over
-``chip_smoke.py``'s limit and what the JAX tests' bf16 atol of 2e-2 would
-have said. Exits non-zero unless the kernel passes at every shape and
-each copy fails the limit at some shape.
+fault in its bf16 tensor-core kernel, into ``build/repro_torch/fault/``
+(the source in the tree is not touched): ``window_edge`` drops the
+sliding-window mask in the first key tile each q tile visits (up to 64 keys
+older than the window leak into a row), ``window_off_by_one`` lets one such
+key in, ``p_bf16`` lets only the first bf16 term of the split of p reach
+P.V (p rounded to bf16; the reference keeps it in f32), ``diag_unmasked``
+classifies the key tile that straddles the causal diagonal as interior, so
+it runs unmasked and rows see later keys. On the windowed bf16 and f32
+inputs ``chip_smoke.py`` holds the kernel to, it runs the kernel and each
+copy through the same wrapper and prints, for each, the largest difference
+from the plain version, the excess over ``chip_smoke.py``'s limit and what
+the JAX tests' bf16 atol of 2e-2 would have said. Exits non-zero unless the
+kernel passes at every shape and each copy fails the limit at some shape.
 """
 from __future__ import annotations
 
@@ -26,14 +28,15 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-WINDOW = "        if (a.window > 0) keep = keep && pos - kp < a.window;\n"
-P_STORE = "        Ps[(ty * 4 + i) * PP + tx + 16 * j] = p;\n"
-FAULTS = {  # name: (line of the kernel, the line that replaces it)
-    "window_edge": (WINDOW, "        if (a.window > 0 && k0 != k_begin) "
-                            "keep = keep && pos - kp < a.window;\n"),
+# each fault: (a fragment of the kernel's code, no comment in it, that
+# occurs once in the source; what replaces it)
+WINDOW = "if (a.window > 0) ok = ok && pos - kp < a.window;"
+FAULTS = {
+    "window_edge": (WINDOW, WINDOW.replace("(a.window > 0)",
+                                           "(a.window > 0 && k0 != k_begin)")),
     "window_off_by_one": (WINDOW, WINDOW.replace("<", "<=")),
-    "p_bf16": (P_STORE, P_STORE.replace(
-        "= p;", "= __bfloat162float(__float2bfloat16(p));")),
+    "p_bf16": ("int P_TERMS = 3;", "int P_TERMS = 1;"),
+    "diag_unmasked": ("|| (a.causal && k0 + BK - 1 > pos_lo)", "|| false"),
 }
 # (B, S, H, KH, D, causal, window, dtype): the serve shape and the windowed
 # shapes chip_smoke.py holds
@@ -44,27 +47,36 @@ CASES = ((4, 8192, 32, 8, 120, True, 4096, "bfloat16"),
          (1, 2048, 32, 8, 120, True, 64, "float32"))
 
 
-def build_faults(build):
-    """One nvcc per planted fault, all started together; returns
-    {name: the faulty copy's entry point}."""
+def build_copies(build, copies, subdir, flags=()):
+    """One nvcc per copy of the kernel's source, all started together;
+    ``copies`` maps a name to its [(fragment of code, what replaces it)],
+    each fragment found exactly once in the source. Returns {name: (the
+    copy's entry point, nvcc's output)}."""
     src = (build.CSRC / "flash_attention.cu").read_text()
-    out_dir = build.BUILD_DIR / "fault"
+    out_dir = build.BUILD_DIR / subdir
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (good, bad) in FAULTS.items():
-        if src.count(good) != 1:
-            raise SystemExit(f"flash_planted_fault: {name}: the kernel line "
-                             "it replaces is not in the source")
+    for name, edits in copies.items():
+        text = src
+        for good, bad in edits:
+            if text.count(good) != 1:
+                raise SystemExit(f"{subdir}: {name}: {good!r} occurs "
+                                 f"{text.count(good)} times in the source, "
+                                 "not once")
+            text = text.replace(good, bad)
         cu = out_dir / f"flash_attention_{name}.cu"
-        cu.write_text(src.replace(good, bad))
+        cu.write_text(text)
         so = cu.with_suffix(".so")
         procs[name] = so, subprocess.Popen(
-            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)])
+            [build._nvcc(), *build.NVCC_FLAGS, *flags, "-o", str(so),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
     fns = {}
     for name, (so, proc) in procs.items():
-        if proc.wait() != 0:
-            raise SystemExit(f"flash_planted_fault: nvcc failed for {name}")
-        fns[name] = ctypes.CDLL(str(so)).flash_attention_fwd
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"{subdir}: nvcc failed for {name}:\n{log}")
+        fns[name] = ctypes.CDLL(str(so)).flash_attention_fwd, log
     return fns
 
 
@@ -80,7 +92,9 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops
 
     real = ops._lib()
-    fns = {"kernel": real, **build_faults(_build)}
+    faults = build_copies(_build, {n: [f] for n, f in FAULTS.items()},
+                          "fault")
+    fns = {"kernel": real, **{n: fn for n, (fn, _) in faults.items()}}
     for fn in fns.values():
         fn.argtypes, fn.restype = real.argtypes, real.restype
     caught = {name: False for name in FAULTS}
