@@ -12,8 +12,14 @@ Phases, in order; any failure exits non-zero:
      version, global and local, at the segment shape (B=16384, 64x64),
      the fallback shape (B=64, 2048x1460, broadcast target) and a ragged
      batch with lengths 0 and 1;
-  4. hold the match/valid kernel exact against its plain version at
-     N=4096, L=1600 and at a ragged N=257, M=130, L=33;
+  4. hold the match/valid kernel exact against its plain version on every
+     route (``MV_CASES``, ``MV_GROUP_CASES``): tensor cores at the
+     main-path shape (symmetric, 4,096^2 x 6,344), split L (4,096 x 64),
+     N not a multiple of the tile, every load width, codes below 0 and
+     above n_chars, protein (n_chars 21) and the gap inside the alphabet,
+     L past 16,352; skinny at M = 1, N = 1 and short sides up to 8; SIMD
+     at n_chars 40; ``match_valid_groups`` with ragged groups (an empty
+     one, one of one row) on tensor cores and SIMD;
   5. hold the banded forward kernel and the fused banded kernel bit-exact
      against their plain versions at ragged small shapes (lengths 0 and
      1, W = 8, 64, 128, a band covering every column, a broadcast
@@ -52,9 +58,12 @@ Phases, in order; any failure exits non-zero:
      (no indels, so no MSA run): the two trees bitwise equal, the tiled
      run within one strip; print seconds by stage, device peaks, kernel-2
      launches and normalized RF;
- 12. for each tree run, hold kernel 2's largest call, one single-column
-     call (M = 1) and one per-cluster square exact against the plain
-     version and time them;
+ 12. for each tree run, hold kernel 2's largest call in each role (the
+     span it ran in, single columns, the per-cluster batch of
+     ``match_valid_groups``) exact against the plain version and time it
+     beside two float32 one-hot products (batched for the groups) and
+     ``torch._int_mm`` of the int8 one-hots where it takes the shapes;
+     each run prints its kernel-2 launches by route;
  13. run ``msa_run --tree ml`` (auto backend, here cluster, plus ML
      refinement at its defaults: model auto, 150 Adam steps, 8 NNI
      rounds) on 1,024 sequences simulated with Phi_DNA's parameters
@@ -156,12 +165,15 @@ def device_peak() -> int:
 
 def cuda_ms(fn, reps: int = 3):
     """Mean device milliseconds of ``fn()`` over ``reps`` runs after one
-    warm-up, from CUDA events, and the last run's result."""
+    warm-up, from CUDA events, and the last run's result. The card is kept
+    busy (``torch.cuda._sleep``) while the runs are queued, so the events
+    time the device's work and not the host's dispatch of small calls."""
     import torch
     out = fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)         # ~25 ms at the H100's clocks
     t0.record()
     for _ in range(reps):
         out = None
@@ -169,6 +181,20 @@ def cuda_ms(fn, reps: int = 3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps, out
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Mean wall milliseconds of ``fn()`` over ``reps`` runs after one
+    warm-up, ending in a device sync: dispatch and device together, what a
+    caller waits for a small call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
 # ------------------------------------------------------------------ kernel 1
@@ -262,12 +288,57 @@ def time_sw(inputs):
 
 # ------------------------------------------------------------------ kernel 2
 
-def mv_inputs(N, M, L, seed):
+# (N, M, L, symmetric, n_chars, gap, codes from lo to hi - 1): every route
+# and load width of kernel 2. Tensor cores: the main-path shape, symmetric;
+# split L (4,096 x 64); N not a multiple of the tile with L % 16 == 1
+# (byte loads); codes below 0 and above n_chars with L % 4 == 0; protein;
+# the gap inside the alphabet (a plane skipped); L past 16,352 (split by the
+# accumulator's field). Skinny: M = 1, N = 1, a short side of 5 and 8, a
+# symmetric call of 7 rows. SIMD: n_chars above the tensor-core maximum.
+MV_CASES = (
+    (4096, 4096, 6344, True, 5, 5, 0, 6),
+    (4096, 64, 6344, False, 5, 5, 0, 6),
+    (1000, 1000, 1441, True, 5, 5, 0, 6),
+    (300, 200, 1444, False, 5, 5, -3, 9),
+    (257, 130, 33, False, 5, 5, 0, 6),
+    (1024, 1024, 2000, True, 21, 21, 0, 23),
+    (257, 130, 35, False, 21, 21, -2, 24),
+    (200, 150, 96, False, 6, 2, 0, 8),
+    (256, 256, 20000, True, 5, 5, 0, 6),
+    (409, 1, 6344, False, 5, 5, 0, 6),
+    (1, 409, 6344, False, 5, 5, -1, 7),
+    (5, 300, 33, False, 21, 21, -2, 24),
+    (700, 8, 1442, False, 5, 5, 0, 6),
+    (7, 7, 100, True, 5, 5, 0, 6),
+    (300, 200, 500, False, 40, 40, -3, 45),
+    (130, 130, 97, True, 40, 40, 0, 42),
+)
+# (rows, L, groups, width, n_chars, gap, lo, hi): match_valid_groups with
+# ragged groups (an empty one, one of a single row), tensor cores and SIMD
+MV_GROUP_CASES = (
+    (4096, 6344, 55, 96, 5, 5, 0, 6),
+    (1000, 2000, 7, 150, 21, 21, -2, 24),
+    (500, 333, 5, 40, 40, 40, 0, 42),
+)
+
+
+def mv_inputs(N, M, L, seed, lo=0, hi=6):
     import torch
     rng = np.random.default_rng(seed)
-    a = torch.from_numpy(rng.integers(0, 6, (N, L)).astype(np.int8))
-    b = torch.from_numpy(rng.integers(0, 6, (M, L)).astype(np.int8))
+    a = torch.from_numpy(rng.integers(lo, hi, (N, L)).astype(np.int8))
+    b = torch.from_numpy(rng.integers(lo, hi, (M, L)).astype(np.int8))
     return a.cuda(), b.cuda()
+
+
+def group_index(rows, n_groups, width, seed):
+    """(G, width) int64 ragged groups of distinct rows, -1 past each
+    group's size: group 0 empty, group 1 one row, the others 2..width."""
+    rng = np.random.default_rng(seed)
+    index = np.full((n_groups, width), -1, np.int64)
+    for g in range(1, n_groups):
+        size = 1 if g == 1 else int(rng.integers(2, width + 1))
+        index[g, :size] = rng.choice(rows, size=size, replace=False)
+    return index
 
 
 def same_mv(k, plain, where: str) -> float:
@@ -281,55 +352,157 @@ def same_mv(k, plain, where: str) -> float:
     return float(max((km - pm).abs().max(), (kv - pv).abs().max()))
 
 
-def check_mv(N, M, L, *, seed, same=False):
+def check_mv(N, M, L, sym, n_chars, gap, lo, hi, *, seed):
     from repro_torch.kernels.distance import ops, ref
-    a, b = mv_inputs(N, M, L, seed)
-    if same:
-        b = a
-    err = same_mv(ops.match_valid(a, b, n_chars=5, gap_code=5),
-                  ref.match_valid_ref(a, b, n_chars=5, gap_code=5),
-                  f"N={N} M={M} L={L}")
-    print(f"match_valid exact vs plain: N={N} M={M} L={L}")
+    a, b = mv_inputs(N, M, L, seed, lo, hi)
+    kw = dict(n_chars=n_chars, gap_code=gap)
+    rt = ops.route(N, M, n_chars)
+    err = same_mv(ops.match_valid(a, None if sym else b, **kw),
+                  ref.match_valid_ref(a, a if sym else b, **kw),
+                  f"N={N} M={M} L={L} n_chars={n_chars} gap={gap} "
+                  f"({rt}{', symmetric' if sym else ''})")
+    print(f"match_valid exact vs plain: N={N} M={M} L={L} "
+          f"n_chars={n_chars} gap={gap} codes {lo}..{hi - 1}, route {rt}"
+          f"{', symmetric' if sym else ''}")
     return err
 
 
+def check_mv_groups(rows, L, G, S, n_chars, gap, lo, hi, *, seed):
+    import torch
+    from repro_torch.kernels.distance import ops, ref
+    msa, _ = mv_inputs(rows, 1, L, seed, lo, hi)
+    index = torch.from_numpy(group_index(rows, G, S, seed)).cuda()
+    kw = dict(n_chars=n_chars, gap_code=gap)
+    rt = ops.route(S, S, n_chars, groups=True)
+    where = (f"groups G={G} S={S} of {rows} rows, L={L}, n_chars={n_chars} "
+             f"({rt})")
+    err = same_mv(ops.match_valid_groups(msa, index, **kw),
+                  ref.match_valid_groups_ref(msa, index, **kw), where)
+    print(f"match_valid_groups exact vs plain: {where}")
+    return err
+
+
+def mv_checks() -> float:
+    """Every case of MV_CASES and MV_GROUP_CASES held exact against the
+    plain version; returns the largest count error."""
+    err = 0.0
+    for i, case in enumerate(MV_CASES):
+        err = max(err, check_mv(*case, seed=40 + i))
+    for i, case in enumerate(MV_GROUP_CASES):
+        err = max(err, check_mv_groups(*case, seed=60 + i))
+    return err
+
+
+def onehots(x, n_chars, gap_code, dtype):
+    """The reference's one-hot planes of int8 rows (..., L), prebuilt:
+    (validity (..., L), symbols (..., L * n_chars)) in ``dtype``."""
+    import torch
+    xl = x.long()
+    sym = torch.arange(n_chars, device=x.device)
+    valid = ((xl != gap_code) & (xl < n_chars)).to(dtype)
+    oh = ((xl[..., None] == sym) & (xl[..., None] != gap_code)).to(dtype)
+    return valid, oh.flatten(-2)
+
+
+def int_mm_ms(a, b, n_chars, gap_code):
+    """Device ms of ``torch._int_mm`` on the int8 one-hots (match and
+    valid), or None where its shape rules refuse the call."""
+    import torch
+    if a.shape[0] <= 16 or b.shape[0] % 8 or a.shape[1] % 8:
+        return None
+    va, oa = onehots(a, n_chars, gap_code, torch.int8)
+    vb, ob = onehots(b, n_chars, gap_code, torch.int8)
+    try:
+        ms, _ = cuda_ms(lambda: (torch._int_mm(oa, ob.T),
+                                 torch._int_mm(va, vb.T)))
+    except RuntimeError:
+        return None
+    return ms
+
+
+def mv_bound(n_pairs, L, in_bytes, out_pairs):
+    """Least card time of kernel 2 on the call: 2 int8 operations per pair
+    and column at the int8 tensor-core rate, or its bytes (each input read
+    once, two int32 outputs written once)."""
+    t_bytes = (in_bytes + 2 * 4 * out_pairs) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * n_pairs * L / INT8_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
 def time_mv_inputs(a, b, where: str, *, n_chars=5, gap_code=5):
-    """Time the kernel, its plain version and one library call on the
-    inputs and hold the kernel exact against the plain version; returns
-    (timings, largest count error)."""
+    """Time the kernel, its plain version and the library yardsticks on the
+    inputs (``b`` None: the symmetric call) and hold the kernel exact
+    against the plain version; returns (timings, largest count error).
+    ``wall_ms``: a call of the wrapper on the host clock, dispatch
+    included."""
     import torch
     from repro_torch.kernels.distance import ops, ref
     kw = dict(n_chars=n_chars, gap_code=gap_code)
+    bb = a if b is None else b
+    N, L = a.shape
+    M = bb.shape[0]
     ms, k = cuda_ms(lambda: ops.match_valid(a, b, **kw))
-    plain_ms, p = cuda_ms(lambda: ref.match_valid_ref(a, b, **kw), reps=1)
+    plain_ms, p = cuda_ms(lambda: ref.match_valid_ref(a, bb, **kw), reps=1)
     err = same_mv(k, p, where)
     del k, p
-    print(f"match_valid exact vs plain at {where}")
-    # yardstick: one float32 product of the prebuilt one-hots (the match
-    # counts), never called by the port
-    sym = torch.arange(n_chars, device=a.device)
+    rt = ops.route(N, M, n_chars)
+    print(f"match_valid exact vs plain at {where} (route {rt})")
+    # yardsticks, never called by the port: the match and valid counts as
+    # two float32 products of the prebuilt one-hots; torch._int_mm of the
+    # int8 one-hots where it takes the shapes
+    va, oa = onehots(a, n_chars, gap_code, torch.float32)
+    vb, ob = (va, oa) if b is None else onehots(bb, n_chars, gap_code,
+                                                torch.float32)
+    library_ms, _ = cuda_ms(lambda: (torch.matmul(oa, ob.T),
+                                     torch.matmul(va, vb.T)))
+    del va, oa, vb, ob
+    in_bytes = N * L if b is None else (N + M) * L
+    return dict(ms=ms, plain_ms=plain_ms, **mv_bound(N * M, L, in_bytes,
+                                                     N * M),
+                library_ms=library_ms,
+                int_mm_ms=int_mm_ms(a, bb, n_chars, gap_code),
+                kernel_route=rt,
+                wall_ms=host_ms(lambda: ops.match_valid(a, b, **kw))), err
 
-    def onehot(x):
-        xl = x.long()
-        return ((xl[:, :, None] == sym) & (xl[:, :, None] != gap_code)).to(
-            torch.float32).reshape(x.shape[0], -1)
-    oa, ob = onehot(a), onehot(b)
-    library_ms, _ = cuda_ms(lambda: torch.matmul(oa, ob.T))
-    del oa, ob
-    N, L = a.shape
-    M = b.shape[0]
-    nbytes = (N + M) * L + 2 * 4 * N * M
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * N * M * L / INT8_OPS_PER_S * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms), err
+
+def time_mv_groups(msa, index, where: str, *, n_chars=5, gap_code=5):
+    """``time_mv_inputs`` for a group call; the yardstick is two batched
+    float32 products of the groups' prebuilt one-hots."""
+    import torch
+    from repro_torch.kernels.distance import ops, ref
+    kw = dict(n_chars=n_chars, gap_code=gap_code)
+    ms, k = cuda_ms(lambda: ops.match_valid_groups(msa, index, **kw))
+    plain_ms, p = cuda_ms(lambda: ref.match_valid_groups_ref(msa, index,
+                                                             **kw), reps=1)
+    err = same_mv(k, p, where)
+    del k, p
+    G, S = index.shape
+    L = msa.shape[1]
+    rt = ops.route(S, S, n_chars, groups=True)
+    print(f"match_valid_groups exact vs plain at {where} (route {rt})")
+    live = (index >= 0)[:, :, None]
+    rows = msa[index.clamp(min=0)]
+    v, oh = onehots(rows, n_chars, gap_code, torch.float32)
+    v, oh = v * live, oh * live
+    del rows
+    library_ms, _ = cuda_ms(lambda: (torch.bmm(oh, oh.transpose(1, 2)),
+                                     torch.bmm(v, v.transpose(1, 2))))
+    del v, oh
+    real = int((index >= 0).sum())
+    return dict(ms=ms, plain_ms=plain_ms, **mv_bound(G * S * S, L, real * L,
+                                                     G * S * S),
+                library_ms=library_ms, int_mm_ms=None, kernel_route=rt,
+                wall_ms=host_ms(lambda: ops.match_valid_groups(msa, index,
+                                                               **kw))), err
 
 
 def time_mv(N, L):
-    """Kernel 2 at the main-path shape (N x N, width L)."""
-    a, _ = mv_inputs(N, N, L, seed=11)
-    return time_mv_inputs(a, a, f"main-path shape N=M={N} L={L}")
+    """Kernel 2 at the main-path shape: the symmetric N x N call at width
+    L, as ``core.distance`` makes it."""
+    a, _ = mv_inputs(N, 1, L, seed=11)
+    return time_mv_inputs(a, None, f"main-path shape N=M={N} L={L}, "
+                          "symmetric")
 
 
 # ------------------------------------------------------------- kernels 3, 4
@@ -522,6 +695,8 @@ class Observe:
             (AlignEngine, "align_pairs", self._stage("search.rescore"))]
         if tree:
             self.targets += [(mv_ops, "match_valid", self._keep_mv),
+                             (mv_ops, "match_valid_groups",
+                              self._keep_mv_groups),
                              (TreeEngine, "build", self._keep_tree)]
 
     def _keep(self, name):
@@ -552,14 +727,26 @@ class Observe:
         ran in), off the card so that later runs' peaks do not see it."""
         from repro_torch.obs import trace
 
-        def wrapped(a, b, **kw):
-            role = ("M=1" if b.shape[0] == 1
+        def wrapped(a, b=None, **kw):
+            role = ("M=1" if b is not None and b.shape[0] == 1
                     else trace.current_span_name() or "-")
-            size = a.shape[0] * b.shape[0] * a.shape[1]
+            size = a.shape[0] * (a if b is None else b).shape[0] * a.shape[1]
             if size > self.mv_largest.get(role, (0,))[0]:
-                self.mv_largest[role] = (size, (a.cpu(), b.cpu(),
+                self.mv_largest[role] = (size, ("pairs", a.cpu(), None if b
+                                                is None else b.cpu(),
                                                 dict(kw)))
             return fn(a, b, **kw)
+        return wrapped
+
+    def _keep_mv_groups(self, fn):
+        """Wrap kernel 2's group wrapper: keep a host copy of the inputs
+        of its largest call (role "groups")."""
+        def wrapped(msa, index, **kw):
+            size = index.numel() * index.shape[1] * msa.shape[1]
+            if size > self.mv_largest.get("groups", (0,))[0]:
+                self.mv_largest["groups"] = (size, ("groups", msa.cpu(),
+                                                    index.cpu(), dict(kw)))
+            return fn(msa, index, **kw)
         return wrapped
 
     def _keep_tree(self, fn):
@@ -599,6 +786,8 @@ class Observe:
         for (obj, attr, wrap), (_, _, fn) in zip(self.targets, self.saved):
             setattr(obj, attr, wrap(fn))
         sw_ops.launches = mv_ops.launches = 0
+        for rt in mv_ops.route_launches:
+            mv_ops.route_launches[rt] = 0
         bd_ops.forward_launches = bd_ops.fused_launches = 0
         for variant in bd_ops.fused_variant_launches:
             bd_ops.fused_variant_launches[variant] = 0
@@ -616,6 +805,7 @@ class Observe:
                          "banded_forward": bd_ops.forward_launches,
                          "banded_fused": bd_ops.fused_launches}
         self.fused_variants = dict(bd_ops.fused_variant_launches)
+        self.mv_routes = dict(mv_ops.route_launches)
         for obj, attr, fn in self.saved:
             setattr(obj, attr, fn)
         self.fallbacks = int(fallback_pairs() - self.fallbacks0)
@@ -683,7 +873,8 @@ def run_msa(fam, fasta: Path, out: Path, label: str, flags, backend: str,
     print(f"{label} stage seconds: {json.dumps(stage_seconds(stages))} "
           f"(wall {wall:.2f} s)")
     print(f"{label} peak device memory: {obs.peaks()}")
-    print(f"{label} kernel launches: {json.dumps(obs.launches)}; "
+    print(f"{label} kernel launches: {json.dumps(obs.launches)} "
+          f"(match_valid by route {json.dumps(obs.mv_routes)}); "
           f"gotoh_forward shapes (B, n, m, broadcast, local): "
           f"{sorted(set(obs.sw_shapes))}")
     rows, report = check_msa(out, fam, backend, need_fallbacks)
@@ -837,7 +1028,8 @@ def run_tree(fasta: Path, out: Path, label: str, flags, n: int, true_tree,
     print(f"tree {label}: backend {report['backend']}, stage seconds "
           f"{json.dumps(stage_seconds(stages))} (wall {wall:.2f} s), "
           f"peak device memory {obs.peaks()}, match_valid "
-          f"launches {obs.launches['match_valid']}, logL {ll}, normalized "
+          f"launches {obs.launches['match_valid']} (by route "
+          f"{json.dumps(obs.mv_routes)}), logL {ll}, normalized "
           f"RF vs the simulated tree {nrf:.4f}, tile_stats "
           f"{json.dumps(report['tile_stats'])}")
     return obs, report
@@ -863,26 +1055,32 @@ def within_strip(report, n: int, label: str) -> None:
 
 
 def hold_tree_calls(runs) -> float:
-    """Kernel 2 on each tree run's largest call, one single-column call
-    and one per-cluster square: held exact against its plain version and
-    timed. Returns the largest count error."""
+    """Kernel 2 on each tree run's largest call in each role (the span it
+    ran in; single columns; the per-cluster batch): held exact against its
+    plain version and timed beside its yardsticks. Returns the largest
+    count error."""
     err = 0.0
     for label, obs in runs:
         calls = obs.mv_largest
         top = max(calls, key=lambda r: calls[r][0])
-        picks = [(f"largest call ({top})", calls[top])]
-        picks += [(what, calls[role]) for what, role in
-                  (("single column", "M=1"),
-                   ("per-cluster square", "tree.cluster_nj"))
-                  if role in calls and role != top]
-        for what, (_, (a, b, kw)) in picks:
-            a, b = a.cuda(), b.cuda()
-            t, e = time_mv_inputs(a, b, f"the tree {label}'s {what} "
-                                  f"{tuple(a.shape)} x {tuple(b.shape)}",
-                                  **kw)
+        for role in sorted(calls):
+            what = f"{role}{' (largest)' if role == top else ''}"
+            form, x, y, kw = calls[role][1]
+            if form == "groups":
+                shape = f"{tuple(y.shape)} groups of {tuple(x.shape)} rows"
+                t, e = time_mv_groups(x.cuda(), y.cuda(),
+                                      f"the tree {label}'s {what} {shape}",
+                                      **kw)
+            else:
+                shape = (f"{tuple(x.shape)} x "
+                         f"{'itself' if y is None else tuple(y.shape)}")
+                t, e = time_mv_inputs(x.cuda(), None if y is None
+                                      else y.cuda(),
+                                      f"the tree {label}'s {what} {shape}",
+                                      **kw)
             err = max(err, e)
-            print(f"match_valid {what} on the tree {label}: "
-                  f"{tuple(a.shape)} x {tuple(b.shape)}: {json.dumps(t)}")
+            print(f"match_valid {what} on the tree {label}: {shape}: "
+                  f"{json.dumps(t)}")
         obs.mv_largest = {}
     return err
 
@@ -1593,8 +1791,7 @@ def main() -> int:
     sw_err = max(check_sw(16384, 64, 64, seed=1),
                  check_sw(64, 2048, 1460, seed=2, broadcast=True),
                  check_sw(12, 37, 53, seed=3, ragged=True))
-    mv_err = max(check_mv(4096, 4096, 1600, seed=4, same=True),
-                 check_mv(257, 130, 33, seed=5))
+    mv_err = mv_checks()
     bd_err = max(check_banded(12, 37, 53, 8, seed=6, ragged=True),
                  check_banded(12, 53, 37, 64, seed=7, ragged=True),
                  check_banded(16, 90, 120, 128, seed=8),

@@ -5,8 +5,9 @@ medoids among the sample (farthest-point greedy over the sampled distance
 matrix); (3) assign every sequence to its nearest medoid — one (N, k)
 cross-distance; (4) rebalance oversized clusters by spilling overflow to the
 next-nearest medoid with room; (5) NJ per cluster, batched over padded
-distance matrices; (6) NJ skeleton over the medoids and stitch the cluster
-subtrees into the final tree.
+distance matrices that one kernel launch counts
+(``distance.distance_groups``); (6) NJ skeleton over the medoids and
+stitch the cluster subtrees into the final tree.
 
 Distances are computed where the rows lie (the match/valid kernel on the
 card). Every discrete choice — the rng draws, the medoid picks, the
@@ -155,20 +156,15 @@ def cluster_phylogeny(msa: torch.Tensor, *, gap_code: int, n_chars: int,
         assign = rebalance(assign, xdist, cap)
         del xdist
 
-    # (5): per-cluster NJ, batched over padded matrices
+    # (5): per-cluster NJ, batched over padded matrices counted in one launch
     with _trace.span("tree.cluster_nj"):
         members = [np.flatnonzero(assign == c) for c in range(k)]
         cap_sz = max(max(len(mm) for mm in members), 3)
-        Dpad = np.zeros((k, cap_sz, cap_sz), np.float32)
-        sizes = np.zeros((k,), np.int32)
-        for c, mm in enumerate(members):
-            if len(mm) == 0:
-                sizes[c] = 1
-                continue
-            sub = host(dist.distance_matrix(take(msa, mm), **kw))
-            Dpad[c, : len(mm), : len(mm)] = sub
-            sizes[c] = len(mm)
-        trees = nj_mod.nj_batch(torch.from_numpy(Dpad).to(msa.device), sizes)
+        sizes = np.asarray([max(len(mm), 1) for mm in members], np.int32)
+        Dpad = dist.distance_groups(
+            msa, dist.group_index(members, cap_sz, msa.device), **kw)
+        trees = nj_mod.nj_batch(Dpad, sizes)
+        del Dpad
         children_b, blen_b = host(trees.children), host(trees.blen)
         cluster_trees = [(children_b[c], blen_b[c], 2 * int(sizes[c]) - 2,
                           int(sizes[c])) for c in range(k)]

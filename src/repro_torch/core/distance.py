@@ -5,9 +5,12 @@ phylogeny stage. The match/valid counts go through
 ``repro_torch.kernels.distance.ops.match_valid`` — the hand-written
 kernel on a CUDA tensor, its plain one-hot version on a CPU tensor.
 Counts are exact integers, returned as float32 like the reference's.
+``distance_groups`` computes many small matrices (the HPTree clusters)
+in one kernel launch, each entry the float ``distance_matrix`` gives.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -16,9 +19,9 @@ def match_valid_counts(msa, other=None, *, gap_code: int, n_chars: int):
     columns and both-non-gap columns. With ``other`` given, the (N, M)
     cross counts instead."""
     from ..kernels.distance.ops import match_valid
-    other = msa if other is None else other
-    match, valid = match_valid(msa.contiguous(), other.contiguous(),
-                               n_chars=n_chars, gap_code=gap_code)
+    match, valid = match_valid(
+        msa.contiguous(), None if other is None else other.contiguous(),
+        n_chars=n_chars, gap_code=gap_code)
     return match.to(torch.float32), valid.to(torch.float32)
 
 
@@ -54,3 +57,31 @@ def cross_distance(msa, other, *, gap_code: int, n_chars: int,
     match, valid = match_valid_counts(msa, other, gap_code=gap_code,
                                       n_chars=n_chars)
     return counts_to_distance(match, valid, correct=correct)
+
+
+def group_index(groups, width: int, device) -> torch.Tensor:
+    """(G, width) int64 row ids of ``distance_groups``: group g's rows,
+    then -1 (a pad row) up to ``width``."""
+    index = np.full((len(groups), width), -1, np.int64)
+    for g, rows in enumerate(groups):
+        index[g, :len(rows)] = rows
+    return torch.from_numpy(index).to(device)
+
+
+def distance_groups(msa, index, *, gap_code: int, n_chars: int,
+                    correct: bool = True):
+    """(G, S, S) float32 distance matrices of the row groups ``index``
+    ((G, S) ids into ``msa``, -1 a pad row), counted in one launch: each
+    real entry is the float ``distance_matrix(msa[rows of g])`` gives (the
+    same elementwise ops, batched); pad entries are 0, as in the padded
+    matrices ``nj_batch`` takes."""
+    from ..kernels.distance.ops import match_valid_groups
+    match, valid = match_valid_groups(msa.contiguous(), index,
+                                      n_chars=n_chars, gap_code=gap_code)
+    d = counts_to_distance(match.to(torch.float32), valid.to(torch.float32),
+                           correct=correct)
+    d = (d + d.transpose(1, 2)) / 2.0
+    d = d * (1.0 - torch.eye(d.shape[1], device=d.device))
+    live = index >= 0
+    return torch.where(live[:, :, None] & live[:, None, :], d,
+                       torch.zeros((), device=d.device))

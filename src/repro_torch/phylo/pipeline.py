@@ -12,16 +12,21 @@ that is the dense path's own cliff at ultra-large N:
                           (``core.cluster.rebalance_rows``, the distance
                           rows recomputed for the rows that move only)
   (5) per-cluster NJ      ``nj_batch`` over cluster chunks sized so the
-                          padded matrices fit one tile row-block strip
+                          padded matrices fit one tile row-block strip,
+                          each chunk's matrices counted in one launch
+                          (``TileContext.squares``)
   (6) skeleton + stitch   k x k NJ + ``treeio.stitch_cluster_trees``
 
 Resident distance storage stays <= one (row_block, N) strip throughout,
 tracked by the ``TileAccountant``. The reference holds the (N, k)
 assignment matrix through the rebalance, which breaks that bound once
 k > row_block (N > 8,192 at the defaults); the port keeps (N,) vectors
-instead. Two ways remain to exceed it: a single cluster whose padded
-matrix is more than half a strip (2 * cap^2 > row_block * N, with
-cap ~ 1.5 * target_cluster, so N < ~150 at the defaults), and the
+instead. A chunk of per-cluster matrices is counted once, as the
+padded (chunk, cap, cap) float32 stack it is on the device (the
+reference counts a host stack plus one transient sub-matrix). Two ways
+remain to exceed the bound: a single cluster whose padded matrix is more
+than a strip (cap^2 > row_block * N, with cap ~ 1.5 * target_cluster,
+so N < ~72 at the defaults), and the
 (k, k) skeleton matrix above one strip (k^2 > row_block * N, N > ~524,000
 at the defaults). Given the same ``ClusterConfig`` the result is
 bit-identical to the dense cluster path: the counts are exact integers,
@@ -77,37 +82,25 @@ def tiled_phylogeny(msa, *, tiles: TileContext,
             lambda idx: tiles.sorted_rows(msa, anchors, idx),
             step=tiles.row_block)
 
-    # (5): per-cluster NJ, batched in chunks that fit one strip
+    # (5): per-cluster NJ, batched in chunks that fit one strip; a chunk's
+    # padded matrices are one kernel launch and stay on the device
     with _trace.span("tree.cluster_nj"):
         members = [np.flatnonzero(assign == c) for c in range(k)]
         cap_sz = max(max(len(mm) for mm in members), 3)
         per = cap_sz * cap_sz * 4
-        # one chunk of padded matrices + one transient sub-matrix <= a strip
-        chunk = max(1, strip_bytes // per - 1)
+        chunk = max(1, strip_bytes // per)   # one chunk's matrices <= a strip
         cluster_trees = []
         for c0 in range(0, k, chunk):
-            cs = range(c0, min(c0 + chunk, k))
-            Dpad = tiles.track(np.zeros((len(cs), cap_sz, cap_sz),
-                                        np.float32))
-            sizes = np.zeros((len(cs),), np.int32)
-            for gi, c in enumerate(cs):
-                mm = members[c]
-                if len(mm) == 0:
-                    sizes[gi] = 1
-                    continue
-                nbytes = acct.alloc(cap_sz * cap_sz * 4)
-                sub = tiles.square(take(msa, mm), pad_to=cap_sz)
-                Dpad[gi, : len(mm), : len(mm)] = sub
-                acct.free(nbytes)
-                sizes[gi] = len(mm)
-            trees = nj_mod.nj_batch(torch.from_numpy(Dpad).to(msa.device),
-                                    sizes)
+            cs = members[c0:c0 + chunk]
+            sizes = np.asarray([max(len(mm), 1) for mm in cs], np.int32)
+            nbytes = acct.alloc(len(cs) * per)
+            trees = nj_mod.nj_batch(tiles.squares(msa, cs, cap_sz), sizes)
+            acct.free(nbytes)
             children_b = trees.children.cpu().numpy()
             blen_b = trees.blen.cpu().numpy()
             for gi in range(len(sizes)):
                 cluster_trees.append((children_b[gi], blen_b[gi],
                                       2 * int(sizes[gi]) - 2, int(sizes[gi])))
-            tiles.release(Dpad)
 
     # (6): skeleton over medoids + stitch
     with _trace.span("tree.stitch"):

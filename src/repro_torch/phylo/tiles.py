@@ -17,6 +17,7 @@ row-block strip of distance storage:
                       strip, with no (N, k) matrix (the pipeline's
                       assignment; the reference's ``nearest`` returns the
                       (N, k) matrix itself)
+  ``squares``         a stack of small per-cluster matrices in one launch
   ``full``            assemble the whole matrix tile by tile — the parity /
                       small-N-exact path, not the production one
 
@@ -133,24 +134,23 @@ class TileContext:
                                     correct=self.correct)
         return d.cpu().numpy()
 
-    def square(self, rows, pad_to: Optional[int] = None) -> np.ndarray:
-        """Small dense symmetric matrix (per-cluster / skeleton blocks).
-
-        ``pad_to`` pads the row count with gap rows, so every per-cluster
-        call has one shape, and crops the result. Real-row entries are
-        unaffected (pairwise counts are row-independent).
-        """
-        rows = self.rows(rows)
-        n = rows.shape[0]
-        if pad_to is not None and n < pad_to:
-            pad = torch.full((pad_to - n, rows.shape[1]), self.gap_code,
-                             dtype=rows.dtype, device=rows.device)
-            rows = torch.cat([rows, pad], dim=0)
-        d = dist_mod.distance_matrix(rows, gap_code=self.gap_code,
+    def square(self, rows) -> np.ndarray:
+        """Small dense symmetric matrix (the skeleton over the medoids)."""
+        d = dist_mod.distance_matrix(self.rows(rows), gap_code=self.gap_code,
                                      n_chars=self.n_chars,
                                      correct=self.correct)
-        d = d.cpu().numpy()
-        return d[:n, :n] if pad_to is not None else d
+        return d.cpu().numpy()
+
+    def squares(self, msa, groups, width: int) -> torch.Tensor:
+        """(G, width, width) distance matrices of the row groups ``groups``
+        (index arrays into ``msa``), padded with zeros past each group's
+        rows, on the device: one kernel launch
+        (``core.distance.distance_groups``). Each real entry equals
+        ``square(msa[group])``'s."""
+        return dist_mod.distance_groups(
+            self.rows(msa), dist_mod.group_index(groups, width, self.device),
+            gap_code=self.gap_code, n_chars=self.n_chars,
+            correct=self.correct)
 
     # ------------------------------------------------------------- streaming
 

@@ -329,8 +329,6 @@ def test_tile_methods_count_the_reference_bytes():
     assert tc.accountant.stats() == dict(
         ref, n_tiles=ref["n_tiles"] - 1,
         total_tile_bytes=ref["total_tile_bytes"] - 45 * 4 * 4)
-    np.testing.assert_array_equal(tc.square(msa[:7], pad_to=12),
-                                  tc.square(msa[:7]))
 
 
 def test_tiled_pipeline_equals_port_cluster_path_bitwise(hptree):
@@ -347,15 +345,29 @@ def test_tiled_pipeline_equals_port_cluster_path_bitwise(hptree):
 def streamed_stats(ref_stats, msa, medoids, assignments, rb):
     """The reference pipeline's tile stats with its (N, k) assignment
     matrix taken out and the port's strips of moving rows put in (one per
-    ``rb`` movers, counted at ``rb`` rows). Exact where that matrix and
-    its strip do not set the reference's peak, as in these fixtures."""
+    ``rb`` movers, counted at ``rb`` rows), and its per-cluster stage
+    recounted: the reference tracks, per chunk of strip // per - 1
+    clusters, a host stack plus one transient matrix per non-empty
+    cluster; the port counts, per chunk of strip // per clusters, the one
+    device stack its single launch gives (per = cap^2 * 4 bytes). Both
+    stages peak at (strip // per) * per when k >= strip // per. Exact
+    where the (N, k) matrix and its strip do not set the reference's
+    peak, as in these fixtures."""
     n, k = len(assignments), len(medoids)
     nearest = _ctx(row_block=rb).nearest_assign(msa, msa[medoids])[0]
     blocks = -(-int((nearest != assignments).sum()) // rb)
     assert ref_stats["peak_resident_bytes"] > (n + rb) * k * 4
-    return dict(ref_stats, n_tiles=ref_stats["n_tiles"] - 1 + blocks,
+    sizes = np.bincount(assignments, minlength=k)
+    per = max(int(sizes.max()), 3) ** 2 * 4
+    fits = rb * n * 4 // per
+    assert k >= fits
+    ref_chunks = -(-k // max(1, fits - 1))
+    port_chunks = -(-k // max(1, fits))
+    nonempty = int((sizes > 0).sum())
+    return dict(ref_stats, n_tiles=ref_stats["n_tiles"] - 1 + blocks
+                - ref_chunks - nonempty + port_chunks,
                 total_tile_bytes=ref_stats["total_tile_bytes"]
-                - n * k * 4 + blocks * rb * k * 4)
+                - n * k * 4 + blocks * rb * k * 4 - nonempty * per)
 
 
 def test_tiled_pipeline_matches_reference(hptree):
@@ -393,6 +405,36 @@ def test_rebalance_rows_equals_rebalance(n, cap, seed):
     np.testing.assert_array_equal(out, ref)
     assert sorted(asked) == sorted(np.flatnonzero(ref != assign).tolist())
     assert np.bincount(out, minlength=k).max() <= cap
+
+
+def test_per_cluster_squares_are_one_call_per_chunk(hptree, monkeypatch):
+    """The per-cluster matrices are one ``match_valid_groups`` call: one
+    for the cluster path, one per chunk of strip // (cap^2 * 4) clusters
+    for the tiled pipeline (a single launch each on the card)."""
+    from repro_torch.kernels.distance import ops
+    calls = []
+    real = ops.match_valid_groups
+
+    def count(msa, index, **kw):
+        calls.append(tuple(index.shape))
+        return real(msa, index, **kw)
+    monkeypatch.setattr(ops, "match_valid_groups", count)
+    msa, cfg = hptree["msa"], tcluster.ClusterConfig(target_cluster=24,
+                                                     seed=2)
+    c = tcluster.cluster_phylogeny(_t(msa), gap_code=GAP, n_chars=NCH,
+                                   cfg=cfg)
+    sizes = np.bincount(c.assignments, minlength=c.n_clusters)
+    cap = max(int(sizes.max()), 3)
+    assert calls == [(c.n_clusters, cap)]
+    calls.clear()
+    t = tiled_phylogeny(msa, tiles=_ctx(row_block=16), cfg=cfg)
+    per_chunk = 16 * 150 * 4 // (cap * cap * 4)
+    k = c.n_clusters
+    assert calls == [(min(per_chunk, k - c0), cap)
+                     for c0 in range(0, k, per_chunk)]
+    assert len(calls) > 1
+    np.testing.assert_array_equal(t.children, c.children)
+    np.testing.assert_array_equal(t.blen, c.blen)
 
 
 def test_tiled_pipeline_memory_bound():
