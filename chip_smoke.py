@@ -22,10 +22,13 @@ Phases, in order; any failure exits non-zero:
      one, one of one row) on tensor cores and SIMD;
   5. hold the banded forward kernel and the fused banded kernel bit-exact
      against their plain versions at ragged small shapes (lengths 0 and
-     1, W = 8, 64, 128, a band covering every column, a broadcast
-     target) and the fused kernel in both of its variants (direction band
-     in shared memory, in a device workspace); the fused kernel's outputs
-     must also equal the banded forward kernel + the banded traceback;
+     1, W = 1, 8, 17, 33, 42, 64, 128, 256, 500 and 1,024, a band covering
+     every column, broadcast targets, band slides above one column a row
+     (lb >= 3 la, la = 1 with lb = m, lb = 1 with la = n), la = n in every
+     pair, B not a multiple of the pairs a CTA, n * W past the first
+     design's 200 KB of shared memory, n + m = 241,000 codes); the fused
+     kernel's outputs must also equal the banded forward kernel + the
+     banded traceback;
   6. run the main path, ``repro_torch.launch.msa_run`` with default flags
      (``--method kmer --tree nj``), on a 4,096-sequence family simulated
      with the paper's Phi_RNA (16S rRNA) parameters, check its outputs and
@@ -44,7 +47,8 @@ Phases, in order; any failure exits non-zero:
      fallbacks of the banded paths and the local search chunks too), hold
      the kernel bit-exact against its plain version again and time it
      beside that plain version, one PyTorch library call where there is
-     one, and its bound;
+     one, and its bound (kernel 4 with its plan's pairs a CTA, grid,
+     workspace, registers and spill bytes);
  10. run the tree backends at 4,096 on phase 6's ``aligned.fasta``:
      ``repro_torch.launch.tree_run --tree-ll`` with ``--backend dense``,
      ``cluster`` and ``tiled --row-block 128``, then ``msa_run --tree
@@ -208,7 +212,7 @@ def sw_inputs(B, n, m, *, seed, broadcast=False, ragged=False):
     lb = rng.integers(max(m // 2, 0), m + 1, B)
     if ragged:
         la[: B // 2] = rng.integers(0, 2, B // 2)
-        lb[B // 4: 3 * B // 4] = rng.integers(0, 2, B // 2)
+        lb[B // 4: B // 4 + B // 2] = rng.integers(0, 2, B // 2)
     lens = np.stack([la, lb], 1).astype(np.int32)
     dev = torch.device("cuda")
     bt = torch.from_numpy(b).to(dev)
@@ -507,10 +511,13 @@ def time_mv(N, L):
 
 # ------------------------------------------------------------- kernels 3, 4
 
-def banded_inputs(B, n, m, *, seed, broadcast=False, ragged=False):
+def banded_inputs(B, n, m, *, seed, broadcast=False, ragged=False,
+                  lens=None):
     """Pairs for the banded kernels: targets are mutated, shifted copies
     of the queries (band-sized offsets, so some pairs stay in the band
-    and some press its edge)."""
+    and some press its edge). ``lens``: ``"slides"`` for lb >= 3 la (the
+    band slides by more than one column a row) with the pairs (1, m), (n,
+    1) and (2, m) first; ``"full"`` for la = n in every pair."""
     import torch
     rng = np.random.default_rng(seed)
     a = rng.integers(0, 4, (B, n)).astype(np.int8)
@@ -526,7 +533,13 @@ def banded_inputs(B, n, m, *, seed, broadcast=False, ragged=False):
     lb = rng.integers(max(m // 2, 0), m + 1, B)
     if ragged:
         la[: B // 2] = rng.integers(0, 2, B // 2)
-        lb[B // 4: 3 * B // 4] = rng.integers(0, 2, B // 2)
+        lb[B // 4: B // 4 + B // 2] = rng.integers(0, 2, B // 2)
+    if lens == "slides":
+        la = rng.integers(1, max(2, n // 3 + 1), B)
+        lb = np.minimum(m, 3 * la + rng.integers(0, m, B))
+        la[:3], lb[:3] = (1, n, 2), (m, 1, m)
+    elif lens == "full":
+        la = np.full(B, n)
     dev = torch.device("cuda")
     bt = torch.from_numpy(b).to(dev)
     if broadcast:
@@ -580,26 +593,28 @@ def check_banded_inputs(a, b, lens, sub, W, where: str):
     k3 = ops.banded_forward(a, b, lens, sub, **kw)
     err = same_banded(k3, ref.banded_forward(
         a, lens[:, 0], b, lens[:, 1], sub, 3, 1, band=W), where)
-    k4 = ops.banded_pairs_fused(a, b, lens, sub, **kw)
-    err = max(err, same_fused(k4, fused_plain(a, b, lens, sub, **kw), where))
+    plain = fused_plain(a, b, lens, sub, **kw)
     a_row, b_row, k, ok = ref.banded_traceback(a, b, k3, 5, band=W)
+    k4 = ops.banded_pairs_fused(a, b, lens, sub, **kw)
+    err = max(err, same_fused(k4, plain, where))
     same_fused(k4, (k3.score, a_row, b_row, k, ok), where,
                "banded_fused vs banded_forward + traceback:")
     return err
 
 
-def check_banded(B, n, m, W, *, seed, broadcast=False, ragged=False):
+def check_banded(B, n, m, W, *, seed, broadcast=False, ragged=False,
+                 lens=None):
     import torch
     from repro_torch.core import alphabet as ab
-    from repro_torch.kernels.banded import ops
-    a, b, lens = banded_inputs(B, n, m, seed=seed, broadcast=broadcast,
-                               ragged=ragged)
+    a, b, ln = banded_inputs(B, n, m, seed=seed, broadcast=broadcast,
+                             ragged=ragged, lens=lens)
     sub = torch.as_tensor(ab.dna_matrix(), dtype=torch.float32,
                           device="cuda")
-    where = f"B={B} n={n} m={m} W={W} broadcast={broadcast} ragged={ragged}"
-    err = check_banded_inputs(a, b, lens, sub, W, where)
-    print(f"banded_forward and banded_fused ({ops.fused_variant(n, W)}) "
-          f"exact vs plain, fused == forward + traceback: {where}")
+    where = (f"B={B} n={n} m={m} W={W} broadcast={broadcast} "
+             f"ragged={ragged} lens={lens or 'typical'}")
+    err = check_banded_inputs(a, b, ln, sub, W, where)
+    print(f"banded_forward and banded_fused exact vs plain, fused == "
+          f"forward + traceback: {where}")
     return err
 
 
@@ -626,11 +641,17 @@ def time_banded(inputs, *, fused):
     broadcast = B > 1 and b.stride(0) == 0
     where = (f"path inputs B={B} n={n} m={m} W={kw['band']} "
              f"broadcast={broadcast}")
+    extra = {}
     if fused:
         ms, k = cuda_ms(lambda: ops.banded_pairs_fused(a, b, lens, sub, **kw))
         plain_ms, p = cuda_ms(lambda: fused_plain(a, b, lens, sub, **kw),
                               reps=1)
         err = same_fused(k, p, where)
+        plan = ops.fused_plan(B, n, m, kw["band"], ops.resident_ctas(
+            a.device, kw["band"], sub.shape[0]))
+        extra = dict(placement="workspace", pairs_per_cta=ops.PAIRS_PER_CTA,
+                     grid=plan.grid, workspace_bytes=plan.workspace_bytes,
+                     **ops.fused_kernel_attrs(kw["band"], sub.shape[0]))
     else:
         ms, k = cuda_ms(lambda: ops.banded_forward(a, b, lens, sub, **kw))
         plain_ms, p = cuda_ms(lambda: ref.banded_forward(
@@ -641,7 +662,8 @@ def time_banded(inputs, *, fused):
     name = "banded_fused" if fused else "banded_forward"
     print(f"{name} exact vs plain at the {where}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                **banded_bound(B, n, m, kw["band"], broadcast, fused)), err
+                **banded_bound(B, n, m, kw["band"], broadcast, fused),
+                **extra), err
 
 
 # ----------------------------------------------------------------- main path
@@ -789,8 +811,6 @@ class Observe:
         for rt in mv_ops.route_launches:
             mv_ops.route_launches[rt] = 0
         bd_ops.forward_launches = bd_ops.fused_launches = 0
-        for variant in bd_ops.fused_variant_launches:
-            bd_ops.fused_variant_launches[variant] = 0
         self.fallbacks0 = fallback_pairs()
         torch.cuda.synchronize()
         reset_peak()
@@ -804,7 +824,6 @@ class Observe:
                          "match_valid": mv_ops.launches,
                          "banded_forward": bd_ops.forward_launches,
                          "banded_fused": bd_ops.fused_launches}
-        self.fused_variants = dict(bd_ops.fused_variant_launches)
         self.mv_routes = dict(mv_ops.route_launches)
         for obj, attr, fn in self.saved:
             setattr(obj, attr, fn)
@@ -926,8 +945,7 @@ def run_search(work: Path, db, queries, label: str, flags, kernels):
           f"peak device memory {obs.peaks()}, survival "
           f"{st['survival']}, candidates {st['candidates']}, band "
           f"fallbacks {obs.fallbacks}, align calls "
-          f"{st['align_calls']}, kernel launches {json.dumps(obs.launches)} "
-          f"(fused variants {json.dumps(obs.fused_variants)})")
+          f"{st['align_calls']}, kernel launches {json.dumps(obs.launches)}")
     for q in hits["queries"]:
         if not q["hits"]:
             fail(f"search {label}: query {q['name']} found no hit")
@@ -1797,7 +1815,27 @@ def main() -> int:
                  check_banded(16, 90, 120, 128, seed=8),
                  check_banded(8, 40, 31, 64, seed=9),       # W >= 2*lb + 2
                  check_banded(16, 200, 180, 64, seed=10, broadcast=True),
-                 check_banded(16, 1700, 1800, 128, seed=11))  # global variant
+                 check_banded(16, 1700, 1800, 128, seed=11),
+                 # slides above one column a row; B not a multiple of the
+                 # pairs a CTA
+                 check_banded(13, 60, 200, 64, seed=12, lens="slides"),
+                 check_banded(9, 30, 150, 8, seed=13, lens="slides"),
+                 check_banded(7, 120, 130, 1024, seed=14, lens="slides"),
+                 check_banded(11, 100, 100, 256, seed=15, ragged=True),
+                 check_banded(6, 300, 400, 1024, seed=16),
+                 check_banded(10, 70, 60, 500, seed=17, ragged=True),
+                 check_banded(10, 45, 45, 33, seed=18, lens="slides"),
+                 check_banded(10, 45, 45, 1, seed=19, ragged=True),
+                 check_banded(33, 150, 160, 64, seed=20, lens="full"),
+                 # n * W past the first design's 200 KB of shared memory
+                 check_banded(5, 4096, 4000, 64, seed=21),
+                 check_banded(10, 70, 60, 17, seed=22, broadcast=True,
+                              ragged=True),
+                 check_banded(21, 80, 300, 42, seed=23, broadcast=True,
+                              lens="slides"),
+                 # n + m = 241,000 codes (the staged windows take the same
+                 # shared memory at any length), band slides of 148-213
+                 check_banded(4, 1000, 240000, 64, seed=24, lens="full"))
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)

@@ -1,15 +1,24 @@
-"""Public wrappers of the banded kernels: checks, launch, plain version.
+"""Public wrappers of the banded kernels: checks, launch plan, launch,
+plain version.
 
 ``banded_forward`` launches ``csrc/banded_forward.cu`` and
 ``banded_pairs_fused`` launches ``csrc/banded_fused.cu`` for CUDA
 tensors; for CPU tensors both run the plain version (``ref.py``). There
-is no other path. ``forward_launches`` and ``fused_launches`` count
-kernel launches; ``fused_variant_launches`` splits the fused ones by
-where the direction band lived (``smem`` or ``global``).
+is no other path. Both kernels run a pair a warp, ``PAIRS_PER_CTA`` a
+CTA, each warp staging its pair's sequences in shared memory in windows
+that follow the band, so sequences of any length fit. Kernel 3 takes one
+pass over B. The fused kernel keeps each pair's (n, W) direction band at
+4 bits a cell (rows of ``band_pitch`` bytes) and its walk's moves in a
+device workspace of one slot a pair slot of a persistent grid, as many
+CTAs as the card holds at once (``fused_plan``), so the workspace does
+not grow with B. ``forward_launches`` and ``fused_launches`` count kernel
+launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -19,22 +28,59 @@ from .ref import BandedForward
 
 MAX_SUB = 32
 MAX_BAND = 1024
-# the fused kernel keeps the (n, W) direction band in shared memory up to
-# this many bytes (the rest of its shared memory is under 27 KB, inside
-# the H100's 227 KB per block); larger bands go to a device workspace
-FUSED_SMEM_BAND_BYTES = 200 * 1024
+PAIRS_PER_CTA = 8          # a pair a warp (csrc/banded_row.cuh: PAIRS)
 
 forward_launches = 0    # kernel launches, for a run to show it used them
 fused_launches = 0
-fused_variant_launches = {"smem": 0, "global": 0}
+
+
+class FusedPlan(NamedTuple):
+    grid: int               # CTAs of PAIRS_PER_CTA pair slots
+    slot_bytes: int         # workspace a pair slot: its band, its moves
+    workspace_bytes: int    # grid * PAIRS_PER_CTA * slot_bytes
+
+
+def cells_per_lane(band: int) -> int:
+    """K, the band cells a lane holds: the least power of two with
+    32 K >= band."""
+    K = 1
+    while 32 * K < band:
+        K *= 2
+    return K
+
+
+def band_pitch(band: int) -> int:
+    """Bytes of a packed direction row of the fused kernel (32 K cells at
+    4 bits)."""
+    return 16 * cells_per_lane(band)
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def _cdiv(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+def fused_plan(B: int, n: int, m: int, band: int, ctas: int) -> FusedPlan:
+    """Kernel 4's launch on a card that holds ``ctas`` of its CTAs at once
+    (SMs x ``fused_kernel_attrs``' CTAs an SM): a persistent grid of at
+    most that many CTAs, pair slot p serving pairs p, p + slots, ..., each
+    slot's workspace its packed band, then its walk's 2-bit moves (16 a
+    word). ``csrc/banded_fused.cu::fused_slot_bytes`` is the same layout;
+    the kernel's entry refuses a workspace smaller than it."""
+    slot = n * band_pitch(band) + _round16((n + m + 15) // 16 * 4)
+    grid = max(1, min(_cdiv(B, PAIRS_PER_CTA), ctas))
+    return FusedPlan(grid, slot, grid * PAIRS_PER_CTA * slot)
 
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
     ctypes.c_float
 
 
-def _fn(name, argtypes):
-    fn = getattr(_build.load(name), name)
+def _fn(name, argtypes, lib=None):
+    fn = getattr(_build.load(lib or name), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -61,16 +107,19 @@ def _check(a, b, lens, sub, band):
         raise ValueError(f"all inputs must be on one device, got {devs}")
 
 
-def _cuda_args(a, b, lens, sub):
+def _cuda_args(a, b, lens, sub, pad=0):
     """Device checks and the common leading C arguments; pads an empty
-    target to one column (no cell reads it when lb == 0)."""
+    target to one column of ``pad`` (no forward cell reads it when
+    lb == 0; the traceback's clamped read finds the gap there, as the
+    reference's does)."""
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     S = sub.shape[0]
     if S > MAX_SUB:
         raise ValueError(f"substitution matrix of size {S} > {MAX_SUB}")
     if b.shape[1] == 0:
-        b = torch.zeros((b.shape[0], 1), dtype=torch.int8, device=b.device)
+        b = torch.full((b.shape[0], 1), pad, dtype=torch.int8,
+                       device=b.device)
     if a.shape[1] > 0 and a.stride(1) != 1:
         raise ValueError("a's rows must be contiguous")
     if b.stride(1) != 1:
@@ -116,11 +165,6 @@ def banded_forward(a, b, lens, sub, *, gap_open, gap_extend,
                          rec[:, 2].to(i32), rec[:, 3].to(i32), rec[:, 4] > 0.5)
 
 
-def fused_variant(n: int, band: int) -> str:
-    """Where the fused kernel keeps the (n, band) direction band."""
-    return "smem" if n * band <= FUSED_SMEM_BAND_BYTES else "global"
-
-
 def banded_pairs_fused(a, b, lens, sub, *, gap_open, gap_extend, band,
                        gap_code: int = 5):
     """Fused banded score + traceback for a batch of pairs (global).
@@ -128,7 +172,7 @@ def banded_pairs_fused(a, b, lens, sub, *, gap_open, gap_extend, band,
     Inputs as ``banded_forward``. Returns (score (B,) f32, a_row (B, n+m)
     int8, b_row (B, n+m) int8, aln_len (B,) i32, ok (B,) bool) — the
     ``BatchAlignment`` field order. On the card no direction matrix is
-    written to device memory when the band fits in shared memory.
+    written to device memory beyond the fixed workspace of ``fused_plan``.
     """
     global fused_launches
     _check(a, b, lens, sub, band)
@@ -139,27 +183,54 @@ def banded_pairs_fused(a, b, lens, sub, *, gap_open, gap_extend, band,
                                                          band=band)
         return fwd.score, a_row, b_row, k, ok
     out_len = a.shape[1] + b.shape[1]
-    b, head = _cuda_args(a, b, lens, sub)
+    b, head = _cuda_args(a, b, lens, sub, pad=gap_code)
     B, n = a.shape
     m = b.shape[1]
     dev = a.device
     a_row = torch.empty((B, m + n), dtype=torch.int8, device=dev)
     b_row = torch.empty((B, m + n), dtype=torch.int8, device=dev)
     rec = torch.zeros((B, 8), dtype=torch.float32, device=dev)
-    variant = fused_variant(n, int(band))
-    work = (torch.empty((B, n, band), dtype=torch.int8, device=dev)
-            if variant == "global" else None)
     if B:
+        plan = fused_plan(B, n, m, int(band),
+                          resident_ctas(dev, int(band), head[-1]))
+        work = torch.empty(plan.workspace_bytes, dtype=torch.uint8,
+                           device=dev)
         fn = _fn("banded_fused", [_P, _LL, _P, _LL, _P, _P, _I, _P, _P, _P,
-                                  _P, _I, _I, _I, _I, _F, _F, _I, _I, _P])
+                                  _P, _LL, _I, _I, _I, _I, _F, _F, _I, _I,
+                                  _P])
         err = fn(*head, a_row.data_ptr(), b_row.data_ptr(), rec.data_ptr(),
-                 work.data_ptr() if work is not None else None, B, n, m,
-                 int(band), float(gap_open), float(gap_extend),
-                 int(gap_code), int(variant == "smem"),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 work.data_ptr(), plan.workspace_bytes, B, n, m, int(band),
+                 float(gap_open), float(gap_extend), int(gap_code),
+                 plan.grid, torch.cuda.current_stream(dev).cuda_stream)
         _build.check_launch(err, "banded_fused")
         fused_launches += 1
-        fused_variant_launches[variant] += 1
     # an empty target was padded to one column; the rows keep n + m
     return (rec[:, 0], a_row[:, :out_len], b_row[:, :out_len],
             rec[:, 4].to(torch.int32), rec[:, 5] > 0.5)
+
+
+def fused_kernel_attrs(band: int, S: int) -> dict:
+    """Registers and local-memory (spill) bytes a thread of kernel 4's
+    instantiation for ``band`` uses, and the CTAs of it an SM holds at
+    once with an S x S table (card only)."""
+    fn = _fn("banded_fused_attrs", [_I, _I, _P, _P, _P], "banded_fused")
+    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(int(band), int(S), ctypes.byref(regs), ctypes.byref(local),
+             ctypes.byref(ctas))
+    _build.check_launch(err, "banded_fused_attrs")
+    return dict(registers=regs.value, local_bytes=local.value,
+                ctas_per_sm=ctas.value)
+
+
+@functools.lru_cache(maxsize=None)
+def _ctas_per_sm(band_cells: int, S: int, device: int) -> int:
+    with torch.cuda.device(device):
+        return fused_kernel_attrs(32 * band_cells, S)["ctas_per_sm"]
+
+
+def resident_ctas(dev, band: int, S: int) -> int:
+    """Kernel 4's CTAs that the card ``dev`` holds at once."""
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms * _ctas_per_sm(cells_per_lane(band), S, index)

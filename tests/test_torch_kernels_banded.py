@@ -39,6 +39,21 @@ def _case(seed, B, n, m):
     return A, T, lens
 
 
+def _slide_case(seed, B, n, m):
+    """Pairs whose band slides by more than one column a row: lb >= 3 la,
+    la = 1 with lb = m, and lb = 1 with la = n (the band then stays put)."""
+    rng = np.random.default_rng(seed)
+    A = rng.integers(0, 4, (B, n)).astype(np.int8)
+    T = rng.integers(0, 4, (B, m)).astype(np.int8)
+    la = rng.integers(1, n // 3 + 1, B)
+    lb = np.minimum(m, 3 * la + rng.integers(0, m, B))
+    lens = np.stack([la, lb], 1).astype(np.int32)
+    lens[0] = (1, m)
+    lens[1] = (n, 1)
+    lens[2] = (2, m)
+    return A, T, lens
+
+
 def _jax_forward(A, T, lens, go, ge, W):
     return jax.vmap(lambda q, t, l: jb.banded_forward(
         q, l[0], t, l[1], jnp.asarray(SUB), go, ge, band=W))(
@@ -63,15 +78,22 @@ def _eq(x, y, what):
     np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=what)
 
 
-@pytest.mark.parametrize("B,n,m,W", [
-    (5, 32, 32, 8), (5, 40, 24, 16), (4, 24, 40, 64), (4, 20, 20, 42),
+@pytest.mark.parametrize("B,n,m,W,slides", [
+    pytest.param(5, 32, 32, 8, False, id="5-32-32-8"),
+    pytest.param(5, 40, 24, 16, False, id="5-40-24-16"),
+    pytest.param(4, 24, 40, 64, False, id="4-24-40-64"),
+    pytest.param(4, 20, 20, 42, False, id="4-20-20-42"),
+    pytest.param(6, 12, 48, 8, True, id="slides-6-12-48-8"),
+    pytest.param(5, 9, 60, 16, True, id="slides-5-9-60-16"),
 ])
 @pytest.mark.parametrize("go,ge", [(3, 1), (5, 2)])
-def test_forward_plain_matches_jax_scan_and_pallas(B, n, m, W, go, ge):
+def test_forward_plain_matches_jax_scan_and_pallas(B, n, m, W, slides, go,
+                                                   ge):
     """Against the vmapped jnp scan and the Pallas kernel (interpret):
     score, start, state, edge and the whole (B, n, W) direction tensor
-    (the band state advances past ``la`` in all three)."""
-    A, T, lens = _case(n * 100 + W, B, n, m)
+    (the band state advances past ``la`` in all three); ``slides``: band
+    slides above one column a row (``_slide_case``)."""
+    A, T, lens = (_slide_case if slides else _case)(n * 100 + W, B, n, m)
     got = _port(ops.banded_forward, A, T, lens, gap_open=go, gap_extend=ge,
                 band=W)
     scan = _jax_forward(A, T, lens, go, ge, W)
@@ -104,13 +126,20 @@ def test_full_coverage_band_equals_full_dp(go, ge):
     assert bool(ok.all())
 
 
-@pytest.mark.parametrize("B,n,m,W", [
-    (5, 32, 32, 8), (4, 48, 32, 16), (3, 24, 48, 64),
+@pytest.mark.parametrize("B,n,m,W,slides", [
+    pytest.param(5, 32, 32, 8, False, id="5-32-32-8"),
+    pytest.param(4, 48, 32, 16, False, id="4-48-32-16"),
+    pytest.param(3, 24, 48, 64, False, id="3-24-48-64"),
+    pytest.param(6, 12, 48, 8, True, id="slides-6-12-48-8"),
+    pytest.param(5, 9, 60, 16, True, id="slides-5-9-60-16"),
+    pytest.param(4, 15, 50, 64, True, id="slides-4-15-50-64"),
 ])
-def test_fused_plain_matches_jax_forward_traceback(B, n, m, W):
+def test_fused_plain_matches_jax_forward_traceback(B, n, m, W, slides):
     """Scores, aligned rows, lengths and ok flags equal the JAX band
-    forward + traceback."""
-    A, T, lens = _case(n + m + W, B, n, m)
+    forward + traceback; ``slides`` as in the forward test (the la = 1,
+    lb = m pair walks through row 0 and on to negative rows, where the
+    reference's clamped reads reach rows past la)."""
+    A, T, lens = (_slide_case if slides else _case)(n + m + W, B, n, m)
     got = _port(ops.banded_pairs_fused, A, T, lens, gap_open=3,
                 gap_extend=1, band=W)
     ref = _jax_pairs(A, T, lens, 3, 1, W)
@@ -158,8 +187,7 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
     A, T, lens = _case(3, 4, 16, 16)
     a, t, ln = torch.from_numpy(A), torch.from_numpy(T), \
         torch.from_numpy(lens)
-    before = (ops.forward_launches, ops.fused_launches,
-              dict(ops.fused_variant_launches))
+    before = (ops.forward_launches, ops.fused_launches)
     kw = dict(gap_open=3, gap_extend=1)
     for fn in (ops.banded_forward, ops.banded_pairs_fused):
         with pytest.raises(TypeError):
@@ -175,8 +203,57 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
         with pytest.raises(ValueError, match="sub"):
             fn(a, t, ln, TSUB.double(), band=8, **kw)
         fn(a, t, ln, TSUB, band=8, **kw)            # the plain version
-    assert (ops.forward_launches, ops.fused_launches,
-            ops.fused_variant_launches) == before
-    # the fused kernel's band goes to shared memory up to ~200 KB
-    assert ops.fused_variant(1493, 64) == "smem"
-    assert ops.fused_variant(4096, 64) == "global"
+    assert (ops.forward_launches, ops.fused_launches) == before
+    # the fused kernel's band lives in a workspace of the plan's pair
+    # slots, whatever the lengths (the first design kept short bands in
+    # shared memory)
+    for n, m in ((1447, 1486), (4096, 4096), (200, 180), (37, 53)):
+        plan = ops.fused_plan(16384, n, m, 64, 528)
+        assert plan.workspace_bytes == plan.grid * ops.PAIRS_PER_CTA \
+            * plan.slot_bytes >= plan.grid * ops.PAIRS_PER_CTA * n * 32
+
+
+@pytest.mark.parametrize("n,m,W", [
+    (1447, 1486, 64), (3735, 1493, 64), (200, 180, 64), (37, 53, 8),
+    (1700, 1800, 128), (4096, 4200, 64), (300, 400, 1024), (90, 120, 256),
+])
+def test_launch_plans_fit_the_card_and_bound_the_workspace(n, m, W):
+    """Kernel 4's launch plan as pure arithmetic: every pair covered by
+    the pair slots of the grid (a persistent grid's slot p takes pairs p,
+    p + slots, ...), no more CTAs than the card holds at once, and a
+    workspace of one slot a pair slot (the packed band, n rows of 16 K
+    bytes for 32 K >= W cells, then the walk's moves at 2 bits a step),
+    the same for any B past what the card holds."""
+    K = ops.cells_per_lane(W)
+    assert 32 * K >= W and (K == 1 or 16 * K < W)
+    assert ops.band_pitch(W) == 16 * K
+    slot = n * 16 * K + -(-((n + m + 15) // 16 * 4) // 16) * 16
+    for ctas in (132, 528, 1056):
+        for B in (1, 13, 1000, 16384, 65536):
+            plan = ops.fused_plan(B, n, m, W, ctas)
+            assert plan.slot_bytes == slot
+            assert 1 <= plan.grid <= ctas
+            slots = plan.grid * ops.PAIRS_PER_CTA
+            assert slots >= B or plan.grid == ctas
+            assert plan.workspace_bytes == slots * slot
+        # the workspace stops growing with B once the grid is full
+        big = {ops.fused_plan(B, n, m, W, ctas).workspace_bytes
+               for B in (8 * ctas, 65536, 1 << 20)}
+        assert big == {ctas * ops.PAIRS_PER_CTA * slot}
+    # at the search shape: 4 CTAs of 8 pair slots an SM on 132 SMs, each
+    # slot a band of 1,447 rows x 32 bytes and 2,933 moves (~196 MB)
+    if (n, m, W) == (1447, 1486, 64):
+        at_search = ops.fused_plan(16384, n, m, W, 528)
+        assert at_search.grid == 528
+        assert at_search.workspace_bytes == 528 * 8 * (1447 * 32 + 736)
+
+
+def test_plans_take_sequences_of_any_length():
+    """No length limit: the kernels stage sequences in windows of shared
+    memory, and kernel 4's workspace grows with n (its band) and n + m
+    (its moves) only."""
+    plan = ops.fused_plan(4, 150_000, 100_000, 64, 528)
+    assert plan.grid == 1
+    assert plan.workspace_bytes == 8 * (150_000 * 32 + 62_512)
+    assert ops.fused_plan(4, 2_000, 240_000, 64, 528).slot_bytes \
+        == 2_000 * 32 + 60_512
