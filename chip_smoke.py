@@ -10,8 +10,13 @@ Phases, in order; any failure exits non-zero:
      each, started together) and print the build seconds;
   3. hold the Gotoh forward kernel bit-exact against its plain PyTorch
      version, global and local, at the segment shape (B=16384, 64x64),
-     the fallback shape (B=64, 2048x1460, broadcast target) and a ragged
-     batch with lengths 0 and 1;
+     the fallback shape (B=64, 2048x1460, broadcast target), ragged
+     batches with lengths 0 and 1 and lengths past n and m, m + 1 at a
+     strip's edge (384 columns) -1, at it and +1 (one and two strips), m of
+     16,384 and 20,000 (past the first design's cap), n >> m and m >> n,
+     m = 0 and n = 0, B not a multiple of the pairs a CTA, BLOSUM62 at gap
+     11 with codes past the table, and planted local ties (a repeated
+     unit: equal maxima in two rows and across strips and lanes);
   4. hold the match/valid kernel exact against its plain version on every
      route (``MV_CASES``, ``MV_GROUP_CASES``): tensor cores at the
      main-path shape (symmetric, 4,096^2 x 6,344), split L (4,096 x 64),
@@ -47,8 +52,9 @@ Phases, in order; any failure exits non-zero:
      fallbacks of the banded paths and the local search chunks too), hold
      the kernel bit-exact against its plain version again and time it
      beside that plain version, one PyTorch library call where there is
-     one, and its bound (kernel 4 with its plan's pairs a CTA, grid,
-     workspace, registers and spill bytes);
+     one, and its bound (kernels 1 and 4 with their plans' pairs a CTA,
+     grid, workspace, registers and spill bytes; kernel 1 with each call's
+     own device peak);
  10. run the tree backends at 4,096 on phase 6's ``aligned.fasta``:
      ``repro_torch.launch.tree_run --tree-ll`` with ``--backend dense``,
      ``cluster`` and ``tiled --row-block 128``, then ``msa_run --tree
@@ -203,22 +209,51 @@ def host_ms(fn, reps: int = 20) -> float:
 
 # ------------------------------------------------------------------ kernel 1
 
-def sw_inputs(B, n, m, *, seed, broadcast=False, ragged=False):
+def sw_inputs(B, n, m, *, seed, broadcast=False, ragged=False,
+              n_chars=5, over=False):
+    """Random codes below ``n_chars``; lengths from half to full, with
+    ``ragged`` lengths of 0 and 1 and with ``over`` some past n and m."""
     import torch
     rng = np.random.default_rng(seed)
-    a = rng.integers(0, 5, (B, n)).astype(np.int8)
-    b = rng.integers(0, 5, (1 if broadcast else B, m)).astype(np.int8)
+    a = rng.integers(0, n_chars, (B, n)).astype(np.int8)
+    b = rng.integers(0, n_chars, (1 if broadcast else B, m)).astype(np.int8)
     la = rng.integers(max(n // 2, 0), n + 1, B)
     lb = rng.integers(max(m // 2, 0), m + 1, B)
     if ragged:
         la[: B // 2] = rng.integers(0, 2, B // 2)
         lb[B // 4: B // 4 + B // 2] = rng.integers(0, 2, B // 2)
+    if over:
+        la[::3] = n + 1 + rng.integers(0, 3, len(la[::3]))
+        lb[1::3] = m + 1 + rng.integers(0, 3, len(lb[1::3]))
     lens = np.stack([la, lb], 1).astype(np.int32)
     dev = torch.device("cuda")
     bt = torch.from_numpy(b).to(dev)
     if broadcast:
         bt = bt.expand(B, m)
     return (torch.from_numpy(a).to(dev), bt, torch.from_numpy(lens).to(dev))
+
+
+def sw_tie_inputs(B, unit, reps, seed):
+    """Local ties in two rows and across strips: a query of a random
+    ``unit`` of C, G, T twice, 2 * unit + 8 A's apart (bridging them costs
+    more than a unit scores), against a target of the unit ``reps`` times;
+    so the local maximum 2 * unit ends in rows unit and the query's end, at
+    every repeat of the unit. Lengths cut at random in half the pairs."""
+    import torch
+    rng = np.random.default_rng(seed)
+    u = rng.integers(1, 4, unit).astype(np.int8)
+    q = np.concatenate([u, np.zeros(2 * unit + 8, np.int8), u])
+    a = np.tile(q, (B, 1))
+    b = np.tile(u, (B, reps))
+    n, m = a.shape[1], b.shape[1]
+    la = np.full(B, n)
+    lb = np.full(B, m)
+    la[1::2] = rng.integers(unit, n + 1, B // 2)
+    lb[1::4] = rng.integers(unit, m + 1, len(lb[1::4]))
+    lens = np.stack([la, lb], 1).astype(np.int32)
+    dev = torch.device("cuda")
+    return (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev),
+            torch.from_numpy(lens).to(dev))
 
 
 def same_sw(k, plain, where: str) -> float:
@@ -242,31 +277,93 @@ def same_sw(k, plain, where: str) -> float:
     return float((k.score - rec[:, 0]).abs().max()) if rec.shape[0] else 0.0
 
 
-def check_sw(B, n, m, *, seed, broadcast=False, ragged=False):
+def hold_sw(a, b, lens, sub, go, where: str) -> float:
     """Kernel vs plain version, global and local; raises on any differing
     byte or record field, returns the largest score difference."""
-    import torch
-    from repro_torch.core import alphabet as ab
     from repro_torch.kernels.sw import ops, ref
-    a, b, lens = sw_inputs(B, n, m, seed=seed, broadcast=broadcast,
-                           ragged=ragged)
-    sub = torch.as_tensor(ab.dna_matrix(), dtype=torch.float32,
-                          device="cuda")
     err = 0.0
     for local in (False, True):
-        k = ops.gotoh_forward(a, b, lens, sub, gap_open=3, gap_extend=1,
+        k = ops.gotoh_forward(a, b, lens, sub, gap_open=go, gap_extend=1,
                               local=local)
-        p = ref.gotoh_forward_ref(a, b, lens, sub, gap_open=3, gap_extend=1,
+        p = ref.gotoh_forward_ref(a, b, lens, sub, gap_open=go, gap_extend=1,
                                   local=local)
-        err = max(err, same_sw(k, p, f"B={B} n={n} m={m} local={local}"))
-    print(f"gotoh_forward exact vs plain: B={B} n={n} m={m} "
-          f"broadcast={broadcast} ragged={ragged} (global, local)")
+        err = max(err, same_sw(k, p, f"{where} local={local}"))
+        del k, p
+    print(f"gotoh_forward exact vs plain: {where} (global, local)")
     return err
+
+
+def check_sw(B, n, m, *, seed, broadcast=False, ragged=False,
+             protein=False, over=False):
+    """Kernel vs plain version at a random case: DNA at gap 3, or
+    ``protein`` (BLOSUM62, 21 codes and 2 past them, gap 11)."""
+    import torch
+    from repro_torch.core import alphabet as ab
+    a, b, lens = sw_inputs(B, n, m, seed=seed, broadcast=broadcast,
+                           ragged=ragged, n_chars=23 if protein else 5,
+                           over=over)
+    sub = torch.as_tensor(ab.blosum62() if protein else ab.dna_matrix(),
+                          dtype=torch.float32, device="cuda")
+    return hold_sw(a, b, lens, sub, 11 if protein else 3,
+                   f"B={B} n={n} m={m} broadcast={broadcast} "
+                   f"ragged={ragged} protein={protein} over={over}")
+
+
+def sw_checks() -> float:
+    """Kernel 1 at the first design's cases and the strip layout's edges
+    (``ops.strip_layout``: strips of at most W = 32 ``ops.MAX_COLS``
+    columns)."""
+    import torch
+    from repro_torch.core import alphabet as ab
+    from repro_torch.kernels.sw import ops
+    W = 32 * ops.MAX_COLS
+    err = max(check_sw(16384, 64, 64, seed=1),
+              check_sw(64, 2048, 1460, seed=2, broadcast=True),
+              check_sw(12, 37, 53, seed=3, ragged=True),
+              # m + 1 at a strip edge -1, at it, +1 (one and two strips)
+              check_sw(13, 70, W - 2, seed=30, ragged=True),
+              check_sw(13, 70, W - 1, seed=31, over=True),
+              check_sw(13, 70, W, seed=32, broadcast=True),
+              check_sw(9, 40, 2 * W - 2, seed=33),
+              check_sw(9, 40, 2 * W - 1, seed=34, ragged=True),
+              check_sw(9, 40, 2 * W, seed=35, over=True),
+              # past the first design's 16,383 columns
+              check_sw(5, 30, 20000, seed=36, ragged=True),
+              check_sw(3, 60, 16384, seed=37, broadcast=True),
+              # n >> m and m >> n; B not a multiple of the pairs a CTA
+              check_sw(7, 3000, 20, seed=38, ragged=True),
+              check_sw(7, 20, 3000, seed=39, ragged=True),
+              check_sw(1, 5, 0, seed=40), check_sw(2, 0, 5, seed=41),
+              check_sw(4101, 33, 300, seed=42),
+              # protein: BLOSUM62, gap 11, codes past the table
+              check_sw(50, 300, 280, seed=43, protein=True, ragged=True),
+              check_sw(21, 150, 700, seed=44, protein=True, broadcast=True))
+    dna = torch.as_tensor(ab.dna_matrix(), dtype=torch.float32, device="cuda")
+    for unit, reps in ((48, 12), (40, 20), (5, 80)):
+        a, b, lens = sw_tie_inputs(6, unit, reps, seed=unit)
+        err = max(err, hold_sw(a, b, lens, dna, 3,
+                               f"local ties: unit {unit} twice, {reps} "
+                               f"repeats in the target"))
+    return err
+
+
+def call_peak(fn) -> int:
+    """Device bytes one call of ``fn`` allocates above what was in use."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
 
 
 def time_sw(inputs):
     """Time the kernel and its plain version on the inputs a path gave it
-    and hold the two outputs bit-exact; returns (timings, largest score
+    and hold the two outputs bit-exact; returns (timings with the launch
+    plan, registers, spills and the call's own device peak, largest score
     error)."""
     from repro_torch.kernels.sw import ops, ref
     a, b, lens, sub, kw = inputs
@@ -285,9 +382,16 @@ def time_sw(inputs):
     nbytes = cells + B * n + (m if broadcast else B * m) + B * 8 + B * 32
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = cells * SW_OPS_PER_CELL / F32_OPS_PER_S * 1e3
+    S = sub.shape[0]
+    plan = ops.sw_plan(B, n, m, ops.resident_ctas(a.device, m, kw["local"],
+                                                  S))
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=None), err
+                library_ms=None, pairs_per_cta=ops.PAIRS_PER_CTA,
+                **plan._asdict(),
+                **ops.sw_kernel_attrs(m, kw["local"], S),
+                call_peak_bytes=call_peak(
+                    lambda: ops.gotoh_forward(a, b, lens, sub, **kw))), err
 
 
 # ------------------------------------------------------------------ kernel 2
@@ -1806,9 +1910,7 @@ def main() -> int:
     built = _build.build()
     print(f"built {sorted(built)} in {time.time() - t0:.1f} s")
 
-    sw_err = max(check_sw(16384, 64, 64, seed=1),
-                 check_sw(64, 2048, 1460, seed=2, broadcast=True),
-                 check_sw(12, 37, 53, seed=3, ragged=True))
+    sw_err = sw_checks()
     mv_err = mv_checks()
     bd_err = max(check_banded(12, 37, 53, 8, seed=6, ragged=True),
                  check_banded(12, 53, 37, 64, seed=7, ragged=True),
