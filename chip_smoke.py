@@ -93,7 +93,8 @@ Phases, in order; any failure exits non-zero:
      phase 13's rows, as shipped (the searcher turns on deterministic
      algorithms itself): uninterrupted, killed at round 2 by a non-StepFailure error, resumed;
      the resumed tree and Newick bitwise equal to the uninterrupted run's;
-     then ``tree_run --refine search --restartable`` once;
+     then ``tree_run --refine search --restartable --search-rounds 4``
+     once;
  16. ``search_run --pipeline --bootstrap 25`` on phase 8's database and
      queries: every family tree ML-refined with support labels;
  then hold kernels 1 and 2 on phase 13's largest calls;
@@ -116,6 +117,24 @@ Phases, in order; any failure exits non-zero:
      full width (B = 1, f32, 8,192 tokens against 8,191 + one decode step,
      atol 2e-3); time kernel 5 at the serve shape beside its bound, its
      plain version and ``scaled_dot_product_attention``;
+ 18. the distributed runtime (``repro_torch.dist``, one process a rank):
+     in a world of one in this process (``nccl``), ``msa_run --dist`` on
+     phase 6's family (refused, as the reference's mesh path refuses a
+     merged width past 2·Lmax + 64 columns; equal to phase 6 where it
+     fits), then on 4,096 Φ_RNA-shaped sequences with indel rate 0.00005
+     (which fit) ``msa_run --tree tiled --tree-ll`` with and without
+     ``--dist``: equal files, ``kmer_fallbacks`` null, kernels 1 and 2
+     launched and their largest calls held against their plain versions;
+     then spawned ``gloo`` worlds sharing the card (kernels built here
+     first): 2 ranks run ``msa_run --dist --tree tiled --tree-ll`` (files
+     equal to the world of one's), ``search_run --dist --score global
+     --backend banded-pallas`` on phase 8's database (``hits.json`` equal
+     to phase 8's but for its ``seed`` stat), ``tree_run --mesh 2x1
+     --backend tiled --row-block 32`` with ``--refine ml --bootstrap 20``
+     and with ``--refine search --starts 4`` on phase 15's 128 rows; 1
+     rank runs those ``tree_run``s with ``--mesh 1x1``: equal Newick
+     files; each rank prints its stage seconds, device peak and kernel
+     launches;
  and print each kernel on its own path as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -126,6 +145,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1457,8 +1477,8 @@ def fleet_phase(msa, names, work: Path, card: str = "cuda") -> None:
     as a user runs it: the searcher turns on deterministic algorithms
     and the cuBLAS workspace configuration itself, after cuBLAS has
     started in the earlier phases — the resumed tree bitwise equal to the
-    uninterrupted one; then ``tree_run --refine search --restartable``
-    once."""
+    uninterrupted one; then ``tree_run --refine search --restartable
+    --search-rounds 4`` once."""
     import shutil
 
     import torch
@@ -1513,7 +1533,8 @@ def fleet_phase(msa, names, work: Path, card: str = "cuda") -> None:
     from repro_torch.core import alphabet as ab
     write_fasta(fasta, names, [ab.DNA.decode(r) for r in msa])
     _, rep = run_tree(fasta, work / "tree_search", f"search {len(names)}",
-                      ["--refine", "search", "--restartable"], len(names),
+                      ["--refine", "search", "--restartable",
+                       "--search-rounds", "4"], len(names),
                       None, stages=FLEET_STAGES)
     if not rep["backend"].endswith("+search") or not Path(
             rep["search"]["ckpt_dir"]).is_dir():
@@ -1613,6 +1634,241 @@ def _ml_phases(work: Path, route: str):
     print(f"search pipeline bootstrap: families "
           f"{[(f['query'], f['n_members'], f.get('mean_support')) for f in fams]}")
     return obs
+
+
+# ------------------------------------------------------- distributed runtime
+
+DIST_RANKS = 2
+DIST_INDEL = 0.00005    # phase 18's family: its merged width fits 2·Lmax + 64
+DIST_TREE_RUNS = {      # tree_run on N_FLEET rows of phase 13's alignment;
+    # the tiled backend named, so that every world size resolves the same
+    # (auto takes tiled on more than one rank only), its strips split
+    "tree_ml": ["--backend", "tiled", "--row-block", "32", "--refine", "ml",
+                "--bootstrap", "20", "--ml-steps", "20", "--nni-rounds",
+                "2"],
+    "tree_search": ["--backend", "tiled", "--row-block", "32", "--refine",
+                    "search", "--starts", "4", "--search-rounds", "3",
+                    "--ml-steps", "20"]}
+DIST_TIMEOUT = 420      # seconds a spawned world may run
+DIST_STAGES = {"msa": MSA_STAGES + TREE_STAGES[3:7] + ("loglik",),
+               "search": SEARCH_STAGES,
+               "tree_ml": ML_STAGES, "tree_search": FLEET_STAGES}
+
+
+def dist_argv(work: Path, job: str, tag: str, n: int, device: str):
+    """The launcher and argv of one phase-18 run at world size ``n``
+    (outputs under ``work / f"{tag}_{job}"``)."""
+    main, argv = _dist_argv(work, job, tag, n)
+    return main, argv + ["--device", device]
+
+
+def _dist_argv(work: Path, job: str, tag: str, n: int):
+    from repro_torch.launch import msa_run, search_run, tree_run
+    out = str(work / f"{tag}_{job}")
+    if job == "msa":
+        return msa_run.main, ["--fasta", str(work / "phi_rna_dist.fa"),
+                              "--out", out, "--dist", "--tree", "tiled",
+                              "--tree-ll"]
+    if job == "search":
+        return search_run.main, ["--db", str(work / "db.fa"), "--query",
+                                 str(work / "q.fa"), "--index",
+                                 str(work / "db.idx.npz"), "--out", out,
+                                 "--dist", "--score", "global",
+                                 "--max-hits", "10", "--backend",
+                                 "banded-pallas"]
+    return tree_run.main, ["--fasta",
+                           str(work / f"phi_dna_{N_FLEET}_aligned.fa"),
+                           "--out", out, "--mesh", f"{n}x1",
+                           *DIST_TREE_RUNS[job]]
+
+
+def dist_run(work: Path, job: str, tag: str, n: int, rank: int,
+             device: str) -> dict:
+    """One phase-18 run on this rank, the launch counts reset just before
+    it: its stage seconds, wall seconds, device peak and launches."""
+    from repro_torch.obs import trace
+    main, argv = dist_argv(work, job, tag, n, device)
+    trace.TRACER.clear()
+    t0 = time.time()
+    with Observe() as obs:
+        main(argv)
+    return {"rank": rank, "stages": stage_seconds(DIST_STAGES[job]),
+            "wall": round(time.time() - t0, 3),
+            "peak_gib": round(obs.peak_gib, 3), "launches": obs.launches}
+
+
+def dist_rank(rank: int, n: int, work: str, tag: str, jobs,
+              device: str) -> None:
+    """A spawned rank of phase 18(b): ``gloo`` (NCCL refuses two ranks on
+    one card) from a ``FileStore``, the card shared, the kernels already
+    built by the parent; writes its runs' numbers to
+    ``work / f"{tag}_rank{rank}.json"``. ``device="cpu"`` rehearses the
+    phase without a card (peaks then read 0)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    work = Path(work)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        for f in ("synchronize", "reset_peak_memory_stats"):
+            setattr(torch.cuda, f, lambda *a, **k: None)
+        for f in ("max_memory_allocated", "memory_allocated"):
+            setattr(torch.cuda, f, lambda *a, **k: 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(work / f"{tag}_store"), n),
+        rank=rank, world_size=n, timeout=timedelta(seconds=DIST_TIMEOUT))
+    try:
+        runs = {job: dist_run(work, job, tag, n, rank, device)
+                for job in jobs}
+    finally:
+        dist.destroy_process_group()
+    (work / f"{tag}_rank{rank}.json").write_text(json.dumps(runs))
+
+
+def spawn_world(work: Path, tag: str, n: int, jobs, device: str) -> list:
+    """Phase 18(b)'s worlds: ``n`` spawned ranks (never forked: CUDA is
+    up in this process) running ``jobs``; each rank's numbers, printed.
+    A rank that fails, or a world past ``DIST_TIMEOUT``, fails."""
+    import torch.multiprocessing as mp
+    (work / f"{tag}_store").unlink(missing_ok=True)
+    t0 = time.time()
+    ctx = mp.start_processes(dist_rank, args=(n, str(work), tag, tuple(jobs),
+                                              device),
+                             nprocs=n, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() - t0 > DIST_TIMEOUT:
+                fail(f"the {n}-rank world ran past {DIST_TIMEOUT} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"a rank of the {n}-rank world failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"a rank of the {n}-rank world exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads((work / f"{tag}_rank{r}.json").read_text())
+             for r in range(n)]
+    print(f"world of {n} ({tag}): {time.time() - t0:.1f} s wall, spawn "
+          "included")
+    for r, runs in enumerate(ranks):
+        for job, v in runs.items():
+            print(f"  rank {r} {job}: stage seconds {json.dumps(v['stages'])}"
+                  f" (wall {v['wall']} s), peak device memory "
+                  f"{v['peak_gib']} GiB, kernel launches "
+                  f"{json.dumps(v['launches'])}")
+    return ranks
+
+
+def same_files(a: Path, b: Path, files, what: str) -> None:
+    for f in files:
+        x, y = (a / f).read_bytes(), (b / f).read_bytes()
+        if f == "hits.json":
+            # the seed stat names the route: "mesh" under --dist
+            x, y = json.loads(x), json.loads(y)
+            seeds = (x["stats"].pop("seed"), y["stats"].pop("seed"))
+            if seeds != ("mesh", "host"):
+                fail(f"{what}: seed stats {seeds}")
+        if x != y:
+            fail(f"{what}: {f} differs ({a} against {b})")
+    print(f"{what}: {', '.join(files)} equal")
+
+
+def dist_phase(fam, work: Path, route: str = "cuda") -> None:
+    """Phase 18: the distributed runtime.
+
+    (a) A world of one in this process (``nccl``, a ``HashStore``). On
+    phase 6's family ``msa_run --dist`` takes the reference's mesh
+    semantics: its rows are built in a frame of 2·Lmax + 64 columns, and
+    a merged width past that is refused (phase 6's is); where the width
+    fits, its ``aligned.fasta`` must equal phase 6's. Then on a family of
+    ``N_SEQS`` Φ_RNA-shaped sequences with ``DIST_INDEL`` indels, which
+    fits: ``msa_run --tree tiled --tree-ll`` without and with ``--dist``,
+    equal files, ``kmer_fallbacks`` null under ``--dist``, the dist run's
+    largest kernel-1 and kernel-2 calls held against their plain versions.
+    (b) Spawned worlds sharing the card (``gloo``): two ranks run
+    ``msa_run --dist`` (files equal to (a)'s), ``search_run --dist`` on
+    phase 8's database (``hits.json`` equal to phase 8's) and ``tree_run
+    --mesh 2x1`` ML + bootstrap and the search fleet on phase 15's rows;
+    one rank runs the same ``tree_run``s with ``--mesh 1x1``: their Newick
+    files equal."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data import write_fasta
+    from repro_torch.launch import msa_run
+    device = "cuda" if route == "cuda" else "cpu"
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        width = json.loads((work / "out" / "report.json").read_text())[
+            "width"]
+        frame = 2 * max(map(len, fam.seqs)) + 64
+        try:
+            msa_run.main(["--fasta", str(work / "phi_rna_4096.fa"), "--out",
+                          str(work / "dist_phase6"), "--dist", "--tree",
+                          "none"])
+            if width > frame:
+                fail(f"msa_run --dist took phase 6's family (width {width} "
+                     f"past its frame of {frame} columns)")
+            same_files(work / "dist_phase6", work / "out",
+                       ("aligned.fasta",), "msa_run --dist on phase 6's "
+                       "family against phase 6")
+        except ValueError as e:
+            if width <= frame or "exceeds out_len" not in str(e):
+                raise
+            print(f"msa_run --dist on phase 6's family refuses, as the "
+                  f"reference's mesh path does: {e}")
+        fam18 = simulate(N_SEQS, indel=DIST_INDEL)
+        fasta = work / "phi_rna_dist.fa"
+        write_fasta(fasta, fam18.names, fam18.seqs)
+        flags = ["--tree", "tiled", "--tree-ll"]
+        _, _, host = run_msa(
+            fam18, fasta, work / "dist_host", "dist family, one process",
+            flags, route, ("gotoh_forward", "match_valid"),
+            stages=DIST_STAGES["msa"], need_fallbacks=False)
+        frame = 2 * max(map(len, fam18.seqs)) + 64
+        if host["width"] > frame:
+            fail(f"phase 18's family does not fit the mesh frame: width "
+                 f"{host['width']} > {frame}; lower DIST_INDEL")
+        obs, _, report = run_msa(
+            fam18, fasta, work / "dist1a_msa", "dist family, world of one",
+            ["--dist", *flags], route, ("gotoh_forward", "match_valid"),
+            stages=DIST_STAGES["msa"], need_fallbacks=False, tree=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"dist family: width {host['width']} in a frame of {frame}, "
+          f"{host['kmer_fallbacks']} k-mer fallbacks in one process")
+    if report["kmer_fallbacks"] is not None:
+        fail(f"msa_run --dist: kmer_fallbacks {report['kmer_fallbacks']}")
+    same_files(work / "dist1a_msa", work / "dist_host",
+               ("aligned.fasta", "tree.nwk"),
+               "msa_run --dist --tree tiled (world of one) against one "
+               "process")
+    err, _ = hold_path_calls((("dist world of one", obs),))
+    e2 = hold_tree_calls((("dist world of one", obs),))
+    print(f"dist world of one: kernels held, largest errors "
+          f"{json.dumps(dict(err, match_valid=e2))}")
+    if max(max(err.values()), e2) != 0:
+        fail("a kernel disagrees with its plain version on phase 18")
+
+    torch.cuda.empty_cache()
+    spawn_world(work, "dist1b", 1, list(DIST_TREE_RUNS), device)
+    spawn_world(work, "dist2", DIST_RANKS,
+                ["msa", *DIST_TREE_RUNS, "search"], device)
+    same_files(work / "dist2_msa", work / "dist1a_msa",
+               ("aligned.fasta", "tree.nwk"),
+               "msa_run --dist --tree tiled on 2 ranks against (a)")
+    same_files(work / "dist2_search", work / "global_banded-pallas",
+               ("hits.json",), "search_run --dist on 2 ranks against phase 8")
+    for job in DIST_TREE_RUNS:
+        same_files(work / f"dist2_{job}", work / f"dist1b_{job}",
+                   ("tree.nwk",), f"tree_run {job} --mesh 2x1 against 1x1")
 
 
 # ---------------------------------------------------------------- LM serving
@@ -2005,6 +2261,8 @@ def main() -> int:
     mv_err = max(mv_err, hold_tree_calls(ml_run))
 
     fa_launches, fa, fa_err = lm_phase()
+
+    dist_phase(fam, work)
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

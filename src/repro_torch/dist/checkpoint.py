@@ -7,7 +7,9 @@ the reference's flatten order (a dict's values by sorted key, lists and
 tuples in order), so a checkpoint the JAX package wrote restores here and
 the other way round. Every write goes through ``atomic_save_npz``.
 Retention keeps the newest ``keep`` steps. ``restore`` walks newest-to-oldest past
-unreadable or mismatched files.
+unreadable or mismatched files. Given a ``mesh``, only its rank 0 writes,
+and every rank waits at a barrier until the write is done (all ranks
+hold the same state and read the same files).
 """
 from __future__ import annotations
 
@@ -98,10 +100,11 @@ def _to_host(x) -> np.ndarray:
 
 
 class CheckpointManager:
-    def __init__(self, directory, keep: Optional[int] = None):
+    def __init__(self, directory, keep: Optional[int] = None, *, mesh=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self.mesh = mesh
 
     # ------------------------------------------------------------- inventory
 
@@ -125,7 +128,17 @@ class CheckpointManager:
 
     def save(self, step: int, tree):
         """Checkpoint ``tree`` as ``step`` (host copy, atomic write, then
-        retention)."""
+        retention). On a mesh rank 0 writes, between two barriers: no rank
+        reads the directory while it changes, so every rank sees the same
+        steps."""
+        if self.mesh is None:
+            return self._write(step, tree)
+        self.mesh.barrier()
+        if self.mesh.rank == 0:
+            self._write(step, tree)
+        self.mesh.barrier()
+
+    def _write(self, step: int, tree):
         t0 = time.perf_counter()
         path = self._path(step)
         atomic_save_npz(path, {f"leaf_{i}": _to_host(x)

@@ -1,16 +1,20 @@
-"""Failure recovery: the deterministic replay loop around a step function.
+"""Failure recovery: the scheduler work Spark does for HAlign-II.
+
+``BackupShardPlan`` — static replication plan mapping every sequence shard
+to ``replication`` hosts (primary first, ring successors after), plus the
+reassignment table used when a host dies: each affected shard moves to its
+first surviving owner, so recovery is a table lookup, not a reshuffle.
 
 ``ResilientLoop`` checkpoints every ``ckpt_every`` steps, and on
 ``StepFailure`` (preemption, injected fault, a timeout surfaced by the
 caller) restores the newest checkpoint and replays forward. Steps are
 pure functions of ``(state, batch(step))``, so replay reproduces the
-exact trajectory — failures cost wall-clock, never correctness. The
-reference's ``BackupShardPlan`` (shard replication across hosts) belongs
-to the distributed runtime, ROADMAP.md §1 item 11, and is not ported.
+exact trajectory — failures cost wall-clock, never correctness.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Callable, Dict, List, Optional
 
 from ..obs import metrics as _obs
 from .checkpoint import CheckpointManager
@@ -25,6 +29,64 @@ _C_REPLAYS = _obs.counter("repro_resilient_replays_total",
 
 class StepFailure(RuntimeError):
     """A step failed in a way that warrants checkpoint replay."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BackupShardPlan:
+    """shard s lives on hosts (s, s+1, ..., s+replication-1) mod n_hosts.
+
+    ``n_shards`` defaults to one shard per host; pass it explicitly when
+    the data is split finer than the host count.
+    """
+    n_hosts: int
+    replication: int
+    n_shards: Optional[int] = None
+
+    def __post_init__(self):
+        if not 1 <= self.replication <= self.n_hosts:
+            raise ValueError(
+                f"replication {self.replication} not in [1, {self.n_hosts}]")
+        if self.n_shards is None:
+            object.__setattr__(self, "n_shards", self.n_hosts)
+
+    def owners(self, shard: int) -> List[int]:
+        """Hosts holding ``shard``; owners[0] is the primary."""
+        return [(shard + j) % self.n_hosts for j in range(self.replication)]
+
+    @staticmethod
+    def _dead_set(dead) -> frozenset:
+        """Accept a single host id or any iterable of them (cascades)."""
+        if isinstance(dead, int):
+            return frozenset((dead,))
+        return frozenset(int(h) for h in dead)
+
+    def takeover(self, dead, shard: int) -> Optional[int]:
+        """First surviving owner of ``shard`` when ``dead`` fails.
+
+        ``dead`` is one host id or an iterable of them (a cascading
+        failure where the backup owners may be dead too); ``None`` means
+        every replica of the shard is gone.
+        """
+        dead = self._dead_set(dead)
+        for h in self.owners(shard):
+            if h not in dead:
+                return h
+        return None
+
+    def reassignment(self, dead) -> Dict[int, int]:
+        """shard -> takeover host, for every shard the dead hosts held.
+
+        Shards whose every replica died are absent from the table — the
+        caller must re-ingest those, not look them up.
+        """
+        dead = self._dead_set(dead)
+        out = {}
+        for s in range(self.n_shards):
+            if dead & set(self.owners(s)):
+                t = self.takeover(dead, s)
+                if t is not None:
+                    out[s] = t
+        return out
 
 
 class ResilientLoop:

@@ -14,21 +14,25 @@ picks the ``repro_torch.phylo.TreeEngine`` backend (``nj`` = dense,
 ``cluster``, ``tiled``, ``auto``; ``ml`` = the auto backend plus
 maximum-likelihood refinement — autodiff branch lengths, BIC model
 selection, NNI — which adds the model and logL before/after to the
-report); ``--tree-ll`` adds the tree's JC69 log-likelihood. ``--dist`` is
-not ported yet and raises an error naming ROADMAP.md §1 item 11.
+report); ``--tree-ll`` adds the tree's JC69 log-likelihood.
+
+``--dist [--mesh DxM]`` routes the alignment through
+``repro_torch.dist.mapreduce.msa_over_mesh`` (the reference's mesh
+semantics: banded backends take the band's result with no per-pair
+fallback, and ``kmer_fallbacks`` is null), and the tree stage's tiled
+strips, bootstrap and fleet scoring split over the same mesh. It runs
+one process a rank: under ``torchrun`` (``WORLD_SIZE`` set) on the
+``nccl`` backend for ``cuda`` and ``gloo`` for ``cpu``, in a process
+group the caller already made, or alone as a world of one. Every rank
+computes the same result; rank 0 writes the files.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 from pathlib import Path
-
-_NOT_PORTED = {
-    "dist": "--dist is not ported yet (ROADMAP.md §1 item 11, the "
-            "distributed runtime)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -61,8 +65,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--band", type=int, default=64,
                     help="band width for the banded backends")
     ap.add_argument("--dist", action="store_true",
-                    help="distributed pipeline (not ported)")
-    ap.add_argument("--mesh", default=None)
+                    help="run the mesh pipeline (repro_torch.dist."
+                         "mapreduce), one process a rank")
+    ap.add_argument("--mesh", default=None,
+                    help="data x model for --dist, e.g. 4x1; default: "
+                         "every rank x 1")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default; raises without one) "
                          "or on the plain PyTorch path on the CPU")
@@ -74,21 +81,27 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.dist:
-        parser.error(_NOT_PORTED["dist"])
     if args.tree == "ml" and args.alphabet == "protein":
         parser.error("--tree ml needs a nucleotide alphabet (the 4-state "
                      "likelihood); use --tree cluster/tiled for protein")
+    if args.dist and args.tree == "ml":
+        # on a mesh the ML fit runs under deterministic algorithms; cuBLAS
+        # reads its workspace configuration once, when it starts
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
     from ..obs import trace as _trace
-    with _trace.request_trace(), _trace.span("msa_run", fasta=args.fasta):
-        _run(args)
-    obs_export.write_outputs(args)
+    from .mesh import run_on_mesh
+    with run_on_mesh(args.dist, args.mesh, args.device) as mesh:
+        with _trace.request_trace(), _trace.span("msa_run",
+                                                 fasta=args.fasta):
+            _run(args, mesh)
+        if mesh is None or mesh.rank == 0:
+            obs_export.write_outputs(args)
 
 
-def _run(args):
+def _run(args, mesh=None):
     from ..obs import trace as _trace
     with _trace.span("load"):
         import torch
@@ -105,13 +118,20 @@ def _run(args):
     cfg = MSAConfig(method=args.method, alphabet=args.alphabet, k=args.k,
                     gap_open=11 if args.alphabet == "protein" else 3,
                     backend=args.backend, band=args.band)
+    writer = mesh is None or mesh.rank == 0
     t0 = time.time()
-    res = center_star_msa(seqs, cfg, device=dev)
+    if mesh is not None:
+        from ..dist import mapreduce
+        res = mapreduce.msa_over_mesh(seqs, cfg, mesh)
+    else:
+        res = center_star_msa(seqs, cfg, device=dev)
     t_msa = time.time() - t0
     out = Path(args.out)
     with _trace.span("write", out=str(out)):
-        out.mkdir(parents=True, exist_ok=True)
-        write_fasta(out / "aligned.fasta", names, decode_msa(res.msa, cfg))
+        if writer:
+            out.mkdir(parents=True, exist_ok=True)
+            write_fasta(out / "aligned.fasta", names,
+                        decode_msa(res.msa, cfg))
 
     with _trace.span("score"):
         msa = torch.as_tensor(res.msa, device=dev)
@@ -122,7 +142,9 @@ def _run(args):
               "center_mode": res.center_mode,
               "backend": resolve_backend(args.backend, dev),
               "avg_sp_penalty": sp,
-              "kmer_fallbacks": res.n_fallback,
+              # null under --dist: per-pair fallbacks aren't counted there
+              "kmer_fallbacks": res.n_fallback if res.n_fallback >= 0
+              else None,
               "msa_seconds": t_msa}
 
     if args.tree != "none":
@@ -133,6 +155,7 @@ def _run(args):
                             backend={"nj": "dense", "ml": "auto"}.get(
                                 args.tree, args.tree),
                             cluster_threshold=args.cluster_threshold,
+                            mesh=mesh,
                             refine="ml" if args.tree == "ml" else "none",
                             device=args.device)
         tree_res = engine.build(msa)
@@ -145,16 +168,18 @@ def _run(args):
             report["tile_stats"] = tree_res.tile_stats
         nwk = tree_res.newick(names)
         with _trace.span("write", artifact="tree.nwk"):
-            (out / "tree.nwk").write_text(nwk + "\n")
+            if writer:
+                (out / "tree.nwk").write_text(nwk + "\n")
         if args.tree_ll and args.alphabet != "protein":
             with _trace.span("loglik"):
                 report["log_likelihood"] = float(likelihood.log_likelihood(
                     msa, tree_res.children, tree_res.blen, tree_res.root,
                     gap_code=alpha.gap_code))
 
-    with _trace.span("report"):
-        (out / "report.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps(report, indent=1))
+    if writer:
+        with _trace.span("report"):
+            (out / "report.json").write_text(json.dumps(report, indent=1))
+        print(json.dumps(report, indent=1))
 
 
 if __name__ == "__main__":

@@ -16,8 +16,12 @@ the chosen backend) and treed by dense NJ into
 tree with B-replicate support labels instead), plus ``--device``: the run
 is on the card (``cuda``, the default; it raises when there is none) or,
 with ``--device cpu``, on the plain PyTorch path. An index saved by
-either package loads in the other. ``--dist`` / ``--mesh`` are not ported
-yet and raise an error naming ROADMAP.md §1 item 11.
+either package loads in the other. ``--dist`` / ``--mesh DxM`` split the
+seeding stage's DB tables over a mesh of ranks
+(``repro_torch.dist.mapreduce.search_over_mesh``; the family trees'
+bootstrap too), one process a rank as ``repro_torch.launch.msa_run
+--dist`` runs; the hits are the same on every mesh shape, and rank 0
+writes the files.
 """
 from __future__ import annotations
 
@@ -25,12 +29,6 @@ import argparse
 import json
 import time
 from pathlib import Path
-
-_NOT_PORTED = {
-    "dist": "--dist/--mesh are not ported yet (ROADMAP.md §1 item 11, the "
-            "distributed runtime)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -75,8 +73,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="skip the seed prefilter and rescore every "
                          "(query, DB) pair — the recall oracle")
     ap.add_argument("--dist", action="store_true",
-                    help="shard the seeding stage over a mesh (not ported)")
-    ap.add_argument("--mesh", default=None, help="mesh shape (not ported)")
+                    help="shard the seeding stage over the mesh "
+                         "(repro_torch.dist.mapreduce.search_over_mesh)")
+    ap.add_argument("--mesh", default=None,
+                    help="data x model mesh, e.g. 2x1; with --dist alone: "
+                         "every rank x 1")
     ap.add_argument("--pipeline", action="store_true",
                     help="center-star align + tree each query family "
                          "(query + its hits)")
@@ -104,18 +105,21 @@ def _safe_name(name: str) -> str:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.dist or args.mesh is not None:
-        parser.error(_NOT_PORTED["dist"])
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
     from ..obs import trace as _trace
-    with _trace.request_trace(), _trace.span("search_run", query=args.query):
-        _run(args, parser)
-    obs_export.write_outputs(args)
+    from .mesh import run_on_mesh
+    with run_on_mesh(args.dist or args.mesh is not None, args.mesh,
+                     args.device) as mesh:
+        with _trace.request_trace(), _trace.span("search_run",
+                                                 query=args.query):
+            _run(args, parser, mesh)
+        if mesh is None or mesh.rank == 0:
+            obs_export.write_outputs(args)
 
 
-def _run(args, parser):
+def _run(args, parser, mesh=None):
     from ..data import read_fasta, write_fasta
     from ..obs import trace as _trace
     from ..search import SearchConfig, SearchEngine, SearchIndex
@@ -127,7 +131,8 @@ def _run(args, parser):
                        max_evalue=args.max_evalue,
                        local=args.score == "local",
                        backend=args.backend, band=args.band)
-    engine = SearchEngine(cfg, device=args.device)
+    engine = SearchEngine(cfg, mesh=mesh, device=args.device)
+    writer = mesh is None or mesh.rank == 0
 
     t0 = time.time()
     with _trace.span("index"):
@@ -146,7 +151,7 @@ def _run(args, parser):
                              "does not exist yet")
             db_names, db_seqs = read_fasta(args.db)
             index = engine.build_index(db_names, db_seqs)
-            if index_path is not None:
+            if index_path is not None and writer:
                 index.save(index_path)
             index_built = True
     t_index = time.time() - t0
@@ -159,8 +164,9 @@ def _run(args, parser):
     t_search = time.time() - t0
 
     out = Path(args.out)
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "hits.json").write_text(json.dumps(result, indent=1))
+    if writer:
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "hits.json").write_text(json.dumps(result, indent=1))
 
     report = {
         "n_queries": len(q_seqs),
@@ -174,13 +180,15 @@ def _run(args, parser):
     if args.pipeline:
         with _trace.span("pipeline", n_queries=len(q_seqs)):
             report["families"] = _run_pipeline(args, out, index, result,
-                                               q_seqs, write_fasta)
+                                               q_seqs, mesh, write_fasta)
 
-    (out / "report.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps(report, indent=1))
+    if writer:
+        (out / "report.json").write_text(json.dumps(report, indent=1))
+        print(json.dumps(report, indent=1))
 
 
-def _run_pipeline(args, out: Path, index, result, q_seqs, write_fasta):
+def _run_pipeline(args, out: Path, index, result, q_seqs, mesh,
+                  write_fasta):
     """search -> align -> tree: one family (query + hits) per query."""
     import numpy as np
 
@@ -191,6 +199,7 @@ def _run_pipeline(args, out: Path, index, result, q_seqs, write_fasta):
     alpha = {"dna": ab.DNA, "rna": ab.RNA}[args.alphabet]
     msa_cfg = MSAConfig(method="plain", alphabet=args.alphabet,
                         backend=args.backend, band=args.band)
+    writer = mesh is None or mesh.rank == 0
     families = []
     for i, q in enumerate(result["queries"]):
         fam_dir = out / f"family_{i:03d}_{_safe_name(q['name'])}"
@@ -203,18 +212,20 @@ def _run_pipeline(args, out: Path, index, result, q_seqs, write_fasta):
             info["skipped"] = "family needs >= 3 members for a tree"
             families.append(info)
             continue
-        fam_dir.mkdir(parents=True, exist_ok=True)
         res = center_star_msa(seqs, msa_cfg, device=args.device)
-        write_fasta(fam_dir / "aligned.fasta", names,
-                    decode_msa(res.msa, msa_cfg))
+        if writer:
+            fam_dir.mkdir(parents=True, exist_ok=True)
+            write_fasta(fam_dir / "aligned.fasta", names,
+                        decode_msa(res.msa, msa_cfg))
         refine = "ml" if args.bootstrap > 0 and len(seqs) >= 4 else "none"
         engine = TreeEngine(gap_code=alpha.gap_code, n_chars=alpha.n_chars,
-                            backend="dense", refine=refine,
+                            backend="dense", mesh=mesh, refine=refine,
                             bootstrap=args.bootstrap if refine == "ml" else 0,
                             ml_steps=args.ml_steps, seed=args.seed,
                             device=args.device)
         tree = engine.build(res.msa)
-        (fam_dir / "tree.nwk").write_text(tree.newick(names) + "\n")
+        if writer:
+            (fam_dir / "tree.nwk").write_text(tree.newick(names) + "\n")
         info.update(width=res.width, tree_backend=tree.backend,
                     refine=refine)
         if tree.support is not None:

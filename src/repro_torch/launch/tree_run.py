@@ -17,8 +17,13 @@ trajectories and move counts), plus ``--device``: the run is on the card
 ``--device cpu``, on the plain PyTorch path. The distance counts go
 through the match/valid kernel on the card.
 
-``--dist`` and ``--mesh`` are not ported yet and exit with an error
-naming ROADMAP.md §1 item 11 (the distributed runtime).
+``--dist`` / ``--mesh DxM`` run on a mesh of ranks, one process a rank
+as ``repro_torch.launch.msa_run --dist`` runs: the tiled backend's
+distance strips and assignment, ML bootstrap replicates and the search
+fleet's candidate scoring split over it (``--mesh`` alone builds it too,
+so bootstrap and the fleet split, and ``--backend auto`` picks tiled on
+more than one rank). Every rank computes the same tree; rank 0 writes the
+files and the search's checkpoints.
 """
 from __future__ import annotations
 
@@ -26,9 +31,6 @@ import argparse
 import json
 import os
 from pathlib import Path
-
-_ITEM11 = "ROADMAP.md §1 item 11, the distributed runtime"
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -94,8 +96,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="resume a killed --restartable search from its "
                          "newest checkpoint")
     ap.add_argument("--dist", action="store_true",
-                    help=f"not ported ({_ITEM11})")
-    ap.add_argument("--mesh", default=None, help=f"not ported ({_ITEM11})")
+                    help="split the distance strips over the mesh")
+    ap.add_argument("--mesh", default=None,
+                    help="data x model mesh, e.g. 4x1 — builds the mesh "
+                         "even without --dist (splitting ML bootstrap "
+                         "replicates and the search fleet's scoring, and "
+                         "letting backend=auto pick tiled); with --dist "
+                         "alone: every rank x 1")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="run on the card (default; raises without one) "
                          "or on the plain PyTorch path on the CPU")
@@ -116,22 +123,26 @@ def main(argv=None):
         parser.error("--resume requires --restartable (or --ckpt-dir)")
     if (args.restartable or args.ckpt_dir) and args.refine != "search":
         parser.error("--restartable/--ckpt-dir apply to --refine search")
-    if args.dist or args.mesh is not None:
-        parser.error(f"--dist/--mesh are not ported yet ({_ITEM11})")
-    if args.refine == "search":
-        # the search runs under deterministic algorithms; cuBLAS reads its
-        # workspace configuration once, when it starts
+    on_mesh = args.dist or args.mesh is not None
+    if args.refine == "search" or (on_mesh and args.refine != "none"):
+        # the search (and on a mesh the ML fit) runs under deterministic
+        # algorithms; cuBLAS reads its workspace configuration once, when
+        # it starts
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     from ..device import resolve_device
     resolve_device(args.device)
     from ..obs import export as obs_export
     from ..obs import trace as _trace
-    with _trace.request_trace(), _trace.span("tree_run", fasta=args.fasta):
-        _run(args)
-    obs_export.write_outputs(args)
+    from .mesh import run_on_mesh
+    with run_on_mesh(on_mesh, args.mesh, args.device) as mesh:
+        with _trace.request_trace(), _trace.span("tree_run",
+                                                 fasta=args.fasta):
+            _run(args, mesh)
+        if mesh is None or mesh.rank == 0:
+            obs_export.write_outputs(args)
 
 
-def _run(args):
+def _run(args, mesh=None):
     from ..obs import trace as _trace
     with _trace.span("load"):
         import numpy as np
@@ -162,7 +173,7 @@ def _run(args):
                         cluster_threshold=args.cluster_threshold,
                         row_block=args.row_block,
                         target_cluster=args.target_cluster,
-                        seed=args.seed, refine=args.refine,
+                        seed=args.seed, mesh=mesh, refine=args.refine,
                         model=args.model, bootstrap=args.bootstrap,
                         ml_steps=args.ml_steps, nni_rounds=args.nni_rounds,
                         starts=args.starts, spr_radius=args.spr_radius,
@@ -171,10 +182,12 @@ def _run(args):
                         device=args.device)
     result = engine.build(msa)
 
+    writer = mesh is None or mesh.rank == 0
     out = Path(args.out)
     with _trace.span("write", out=str(out)):
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "tree.nwk").write_text(result.newick(names) + "\n")
+        if writer:
+            out.mkdir(parents=True, exist_ok=True)
+            (out / "tree.nwk").write_text(result.newick(names) + "\n")
     report = {"n_sequences": result.n_leaves, "width": msa.shape[1],
               "backend": result.backend, "requested_backend": args.backend,
               "tree_seconds": result.timings["total_seconds"],
@@ -203,8 +216,9 @@ def _run(args):
             report["log_likelihood"] = float(likelihood.log_likelihood(
                 msa, result.children, result.blen, result.root,
                 gap_code=alpha.gap_code))
-    (out / "report.json").write_text(json.dumps(report, indent=1))
-    print(json.dumps(report, indent=1))
+    if writer:
+        (out / "report.json").write_text(json.dumps(report, indent=1))
+        print(json.dumps(report, indent=1))
 
 
 if __name__ == "__main__":

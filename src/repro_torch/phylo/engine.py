@@ -27,8 +27,11 @@ internal edge. The alignment's site patterns are compressed once for
 both.
 
 Every distance count comes from the match/valid kernel on the card (its
-plain version with ``device="cpu"``). A ``mesh`` is not ported yet and
-raises ``NotImplementedError`` naming ROADMAP.md §1 item 11.
+plain version with ``device="cpu"``). With a ``mesh`` (a
+``repro_torch.dist.sharding.Mesh``) the tiled backend's strips and
+assignment, ML bootstrap replicates and the search fleet's candidate
+scoring split over its ranks; every other stage runs on every rank, and
+every rank returns the same result.
 
 ``build`` returns a ``PhyloResult``: the tree arrays, the effective backend
 that ran (``"<backend>+ml"``/``"+search"`` when refined), timings, for the
@@ -94,17 +97,16 @@ def resolve_tree_backend(backend: str, *, n: int, mesh=None,
 
     ``cluster`` drops to ``dense`` at or below ``cluster_threshold``;
     ``tiled`` becomes ``tiled-exact`` when the whole matrix fits one
-    strip. Only ``mesh=None`` (one device) is ported.
+    strip; ``auto`` takes the tiled pipeline on a mesh of more than one
+    rank.
     """
     if backend not in TREE_BACKENDS:
         raise ValueError(f"unknown tree backend {backend!r}; "
                          f"expected one of {TREE_BACKENDS}")
-    if mesh is not None:
-        raise NotImplementedError(tiles.MESH_TODO)
     if backend == "auto":
         if n <= cluster_threshold:
             return "dense"
-        if n > AUTO_TILED_N:
+        if (mesh is not None and mesh.size > 1) or n > AUTO_TILED_N:
             return "tiled" if n > row_block else "tiled-exact"
         return "cluster"
     if backend == "cluster" and n <= cluster_threshold:
@@ -128,7 +130,7 @@ class TreeEngine:
     target_cluster: int = 64
     sample_frac: float = 0.10
     seed: int = 0
-    mesh: Optional[object] = None    # not ported: must be None
+    mesh: Optional[object] = None    # a dist.sharding.Mesh
     refine: str = "none"             # none | ml | search
     model: str = "auto"              # substitution model (auto = BIC)
     bootstrap: int = 0               # bootstrap replicates (ml/search)
@@ -251,7 +253,8 @@ class TreeEngine:
         refiner = MLRefiner(gap_code=self.gap_code, n_chars=self.n_chars,
                             correct=self.correct, model=self.model,
                             steps=self.ml_steps, nni_rounds=self.nni_rounds,
-                            seed=self.seed, device=self.device)
+                            seed=self.seed, mesh=self.mesh,
+                            device=self.device)
         # compress once; refine/search and bootstrap share the patterns
         patterns, weights = lik.compress_patterns(msa_t)
         out = {}
@@ -270,7 +273,7 @@ class TreeEngine:
                 correct=self.correct, starts=self.starts,
                 spr_radius=self.spr_radius, rounds=self.search_rounds,
                 model=self.model, steps=self.ml_steps, seed=self.seed,
-                ckpt_dir=self.ckpt_dir, resume=self.resume,
+                mesh=self.mesh, ckpt_dir=self.ckpt_dir, resume=self.resume,
                 device=self.device)
             with _trace.span("tree.refine", model=self.model,
                              mode="search") as sp:

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Dict, NamedTuple, Optional
 
 import numpy as np
@@ -45,8 +46,6 @@ from ..device import resolve_device
 from ..obs import trace as _trace
 from . import models
 
-MESH_TODO = ("a mesh is not ported yet (ROADMAP.md §1 item 11, the "
-             "distributed runtime)")
 # device bytes the forest evaluator may hold for one chunk of scored
 # trees, and bootstrap replicates for one batch: a tenth of an 80 GB card
 MEMORY_BUDGET = 8 << 30
@@ -346,6 +345,23 @@ def replicate_weights(seed: int, weights, *, n_replicates: int,
 
 
 @contextlib.contextmanager
+def _deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for the block, the
+    caller's setting restored after. cuBLAS is deterministic only under a
+    fixed workspace configuration: ``CUBLAS_WORKSPACE_CONFIG`` is set
+    here unless the caller set it (``tree_run`` sets it before any work
+    on the card)."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+@contextlib.contextmanager
 def _exact_float32():
     """float32 products at full precision: TF32 would round the weighted
     counts."""
@@ -496,14 +512,12 @@ class MLRefiner:
     min_gain: float = 1e-2       # logL gain an NNI must clear
     site_chunk: int = 2048       # checkpoint granularity (0 = off)
     seed: int = 0
-    mesh: Optional[object] = None    # not ported: must be None
+    mesh: Optional[object] = None    # a dist.sharding.Mesh (bootstrap)
     device: str = "cuda"
 
     def __post_init__(self):
         if self.model != "auto":
             models.validate(self.model)
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_TODO)
 
     # ------------------------------------------------------------- refine
 
@@ -513,8 +527,17 @@ class MLRefiner:
 
         ``children``/``blen`` must be index-topological; the result is
         renumbered back to that convention. ``patterns``/``weights``
-        accept a precomputed ``compress_patterns(msa)``.
+        accept a precomputed ``compress_patterns(msa)``. On a mesh every
+        rank refines (a host stage of the reference) under deterministic
+        algorithms, so every rank computes the same tree.
         """
+        with (_deterministic() if self.mesh is not None
+              else contextlib.nullcontext()):
+            return self._refine(msa, children, blen, root,
+                                patterns=patterns, weights=weights)
+
+    def _refine(self, msa, children, blen, root, *, patterns,
+                weights) -> MLResult:
         dev = resolve_device(self.device)
         n = msa.shape[0]
         patterns_np, weights_np, patterns, weights = _patterns(
@@ -582,11 +605,39 @@ class MLRefiner:
         """Nonparametric bootstrap support for the tree's internal edges
         (``replicate_weights`` seeded from ``(self.seed, b)``)."""
         dev = resolve_device(self.device)
-        n = msa.shape[0]
         _, weights_np, patterns, _ = _patterns(msa, patterns, weights, dev)
+        ch_b, _ = self.replicate_trees(patterns, weights_np, n_replicates)
+        return split_support(children, root, msa.shape[0], ch_b)
+
+    def replicate_trees(self, patterns, weights_np, n_replicates: int):
+        """Host ``(children, blen)`` (B, 2N-1, 2) of the bootstrap
+        replicates of the (device) site ``patterns`` and their host counts
+        ``weights_np``.
+
+        Replicates split over ``self.mesh``'s data axis when one is set
+        (``dist.mapreduce.bootstrap_over_mesh``): each rank draws and
+        builds its block of replicates, B padded with all-zero weight
+        rows; a replicate's weights and tree do not depend on its block,
+        so the trees are the same on every mesh shape."""
         n_sites = int(round(float(weights_np.sum())))
-        W = replicate_weights(self.seed, weights_np,
-                              n_replicates=n_replicates, n_sites=n_sites)
-        ch_b, _ = replicate_trees(patterns, W, gap_code=self.gap_code,
-                                  n_chars=self.n_chars, correct=self.correct)
-        return split_support(children, root, n, ch_b)
+        if self.mesh is None:
+            W = replicate_weights(self.seed, weights_np,
+                                  n_replicates=n_replicates, n_sites=n_sites)
+            return replicate_trees(patterns, W, gap_code=self.gap_code,
+                                   n_chars=self.n_chars,
+                                   correct=self.correct)
+        from ..dist import mapreduce
+        from ..dist import sharding as sh
+        per = -(-n_replicates // sh.axis_size(self.mesh, "data"))
+        b0 = self.mesh.block_index("data") * per
+        W = torch.zeros((per, weights_np.shape[0]), dtype=torch.float32)
+        mine = max(0, min(per, n_replicates - b0))
+        W[:mine] = replicate_weights(self.seed, weights_np,
+                                     n_replicates=mine, n_sites=n_sites,
+                                     start=b0)
+        fn = mapreduce.bootstrap_over_mesh(
+            self.mesh, gap_code=self.gap_code, n_chars=self.n_chars,
+            correct=self.correct)
+        ch_b, bl_b = fn(patterns, W)
+        return (mapreduce.unpad_rows(ch_b, n_replicates),
+                mapreduce.unpad_rows(bl_b, n_replicates))

@@ -8,7 +8,9 @@ pipeline (``repro_torch.phylo.pipeline``) never holds more than one tile
 row-block strip of distance storage:
 
   ``strips``          generator of (row_block, M) strips, one resident at a
-                      time
+                      time; split over the ``repro_torch.dist`` mesh when
+                      one is given (``dist.mapreduce.
+                      distance_strip_over_mesh``: each rank a column shard)
   ``row_sums``        streamed row-sum reduction (medoid seeding)
   ``greedy_k_center`` streamed farthest-point medoid selection — identical
                       picks to ``core.cluster.farthest_point_medoids`` with
@@ -16,7 +18,9 @@ row-block strip of distance storage:
   ``nearest_assign``  each row's nearest anchor and distance, strip by
                       strip, with no (N, k) matrix (the pipeline's
                       assignment; the reference's ``nearest`` returns the
-                      (N, k) matrix itself)
+                      (N, k) matrix itself); on a mesh each rank takes a
+                      shard of the rows (``dist.mapreduce.
+                      nearest_anchor_over_mesh``'s split)
   ``squares``         a stack of small per-cluster matrices in one launch
   ``full``            assemble the whole matrix tile by tile — the parity /
                       small-N-exact path, not the production one
@@ -48,9 +52,6 @@ _G_RESIDENT = _obs.gauge("repro_tile_resident_bytes",
 _C_TILES = _obs.counter("repro_tiles_total", "distance tiles materialized")
 _C_TILE_BYTES = _obs.counter("repro_tile_bytes_total",
                              "distance bytes materialized, cumulative")
-
-MESH_TODO = ("a mesh is not ported yet (ROADMAP.md §1 item 11, the "
-             "distributed runtime)")
 
 
 class TileAccountant:
@@ -98,14 +99,14 @@ class TileContext:
     correct: bool = True           # JC69 correction (off for protein)
     row_block: int = 128
     col_block: Optional[int] = None   # ``full`` only; defaults to row_block
-    mesh: Optional[object] = None     # not ported: must be None
+    mesh: Optional[object] = None     # a dist.sharding.Mesh
     accountant: Optional[TileAccountant] = None
     device: str = "cuda"
+    data_axis: str = "data"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_TODO)
-        self.device = resolve_device(self.device)
+        self.device = (self.mesh.device if self.mesh is not None
+                       else resolve_device(self.device))
         if self.accountant is None:
             self.accountant = TileAccountant()
 
@@ -161,20 +162,38 @@ class TileContext:
 
         Exactly one strip is resident at a time (alloc on yield, free on
         resume); each is counted at the full ``row_block`` height, as the
-        reference counts the strip it pads to that height.
+        reference counts the strip it pads to that height. With a mesh and
+        ``cols is None`` each rank computes its column shard of every
+        strip, gathered to the whole strip on every rank; the strips are
+        bitwise those of one device (integer counts, elementwise JC69).
         """
         msa = self.rows(msa)
         cols_t = msa if cols is None else self.rows(cols)
         n, m = msa.shape[0], cols_t.shape[0]
         rb = self.row_block
+        mesh_fn = None
+        if self.mesh is not None and cols is None:
+            mesh_fn, S = self._mesh_strip_fn(msa)
         for start in range(0, n, rb):
             stop = min(start + rb, n)
-            strip = self.block(msa[start:stop], cols_t)
+            if mesh_fn is not None:
+                strip = mesh_fn(msa[start:stop], S)[:, :m].cpu().numpy()
+            else:
+                strip = self.block(msa[start:stop], cols_t)
             nbytes = self.accountant.alloc(rb * m * 4)
             try:
                 yield start, stop, strip
             finally:
                 self.accountant.free(nbytes)
+
+    def _mesh_strip_fn(self, msa: torch.Tensor):
+        from ..dist import mapreduce
+        S = mapreduce.shard_padded(msa, self.mesh, self.data_axis,
+                                   fill=self.gap_code)
+        fn = mapreduce.distance_strip_over_mesh(
+            self.mesh, gap_code=self.gap_code, n_chars=self.n_chars,
+            correct=self.correct, data_axis=self.data_axis)
+        return fn, S
 
     def row_sums(self, msa) -> np.ndarray:
         """Streamed row-sum reduction over the implicit (N, N) matrix."""
@@ -207,9 +226,26 @@ class TileContext:
         """Every row's nearest anchor and its distance to it, strip by
         strip: ``(assign (N,), own (N,) float32)``, as ``np.argmin`` over
         the rows of the (N, k) distance matrix picks them, with no such
-        matrix resident."""
+        matrix resident. With a mesh each rank streams its shard of the
+        rows against every anchor (the reference's
+        ``nearest_anchor_over_mesh`` split) and the (N,) results are
+        gathered to every rank."""
         msa = self.rows(msa)
         anchors = self.rows(anchors)
+        n = msa.shape[0]
+        if self.mesh is not None:
+            from ..dist import mapreduce
+            from ..dist import sharding as sh
+            rows = mapreduce.shard_padded(msa, self.mesh, self.data_axis,
+                                          fill=self.gap_code)
+            assign, own = self._assign(rows, anchors)
+            assign, own = (sh.gather_rows(torch.from_numpy(x).to(
+                self.device), self.mesh, self.data_axis).cpu().numpy()[:n]
+                for x in (assign, own))
+            return assign, own
+        return self._assign(msa, anchors)
+
+    def _assign(self, msa, anchors):
         n = msa.shape[0]
         assign = np.empty((n,), np.int64)
         own = np.empty((n,), np.float32)

@@ -27,17 +27,19 @@ best:
    the gradients that scatter through the level gathers would otherwise
    be summed by atomics in a varying order.
 
-Candidate construction is the reference's host numpy code. A ``mesh``
-(the reference's shard-mapped scoring) is not ported (ROADMAP.md §1
-item 11). Per-start logL trajectories surface through ``repro_torch.obs``
+Candidate construction is the reference's host numpy code, run on every
+rank of a ``mesh``; there the (K, C) candidate block splits over the
+data axis by search (``dist.mapreduce.treesearch_over_mesh``, K padded
+with searches of no candidates) and the scores are gathered to every
+rank. A candidate's score does not depend on the others scored with it,
+so mesh and one-process runs are bitwise equal. Only rank 0 writes the
+checkpoints. Per-start logL trajectories surface through ``repro_torch.obs``
 spans (``tree.search``, ``search.round``) and through
 ``TreeSearchResult.trajectories``.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
-import os
 import time
 from collections import deque
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
@@ -53,7 +55,7 @@ from ..device import resolve_device
 from ..obs import metrics as _obs
 from ..obs import trace as _trace
 from . import models
-from .ml import (MEMORY_BUDGET, MESH_TODO, _fit, _host, _patterns,
+from .ml import (MEMORY_BUDGET, _deterministic, _fit, _host, _patterns,
                  nni_candidates, renumber_topological, score_trees)
 
 _C_MOVES = _obs.counter("repro_treesearch_moves_total",
@@ -392,23 +394,6 @@ def _pow2ceil(x: int) -> int:
 
 # ------------------------------------------------------------------- fleet
 
-@contextlib.contextmanager
-def _deterministic():
-    """``torch.use_deterministic_algorithms(True)`` for the block, the
-    caller's setting restored after. cuBLAS is deterministic only under a
-    fixed workspace configuration: ``CUBLAS_WORKSPACE_CONFIG`` is set
-    here unless the caller set it (``tree_run`` sets it before any work
-    on the card)."""
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    prev = (torch.are_deterministic_algorithms_enabled(),
-            torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
-
-
 class TreeSearchResult(NamedTuple):
     children: np.ndarray      # (2N-1, 2) int32, index-topological again
     blen: np.ndarray          # (2N-1, 2) float32 optimized lengths
@@ -460,7 +445,7 @@ class TreeSearcher:
     min_gain: float = 1e-2        # logL gain a move must clear
     site_chunk: int = 2048
     seed: int = 0
-    mesh: Optional[object] = None     # not ported: must be None
+    mesh: Optional[object] = None     # a dist.sharding.Mesh (scoring)
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 1
     ckpt_keep: Optional[int] = 3
@@ -474,8 +459,6 @@ class TreeSearcher:
             models.validate(self.model)
         if self.starts < 1:
             raise ValueError(f"need at least one start, got {self.starts}")
-        if self.mesh is not None:
-            raise NotImplementedError(MESH_TODO)
 
     # ------------------------------------------------------------- search
 
@@ -500,7 +483,7 @@ class TreeSearcher:
 
         with _deterministic(), _trace.span(
                 "tree.search", starts=K, spr_radius=self.spr_radius,
-                rounds=self.rounds) as sp:
+                rounds=self.rounds, mesh=self.mesh is not None) as sp:
             starts, labels = fleet_starts(
                 msa, k=K, gap_code=self.gap_code, n_chars=self.n_chars,
                 correct=self.correct, seed=self.seed, device=dev)
@@ -554,7 +537,8 @@ class TreeSearcher:
                 from ..dist.fault import ResilientLoop
                 loop = ResilientLoop(step_fn,
                                      CheckpointManager(self.ckpt_dir,
-                                                       keep=self.ckpt_keep),
+                                                       keep=self.ckpt_keep,
+                                                       mesh=self.mesh),
                                      ckpt_every=self.ckpt_every,
                                      failure_hook=self.failure_hook,
                                      max_failures=self.max_failures)
@@ -585,6 +569,27 @@ class TreeSearcher:
                 st["moves"], secs)
 
     # ------------------------------------------------------------ internals
+
+    def _score(self, patterns, weights, ch_k, bl_k, od_k, prm, n_cand,
+               model: str) -> np.ndarray:
+        """(K, C) candidate block -> (K, C) logL, on one device or split
+        by search over the mesh's data axis."""
+        if self.mesh is None:
+            return score_fleet(patterns, weights, ch_k, bl_k, od_k, prm,
+                               model=model, site_chunk=self.site_chunk,
+                               n_cand=n_cand)
+        from ..dist import mapreduce
+        from ..dist import sharding as sh
+        n_shards = sh.axis_size(self.mesh, "data")
+        per = -(-ch_k.shape[0] // n_shards)
+        blk = slice(self.mesh.block_index("data") * per, None)
+        # this rank's searches; padding searches have no candidates
+        parts = [mapreduce.pad_rows(x, n_shards)[0][blk][:per]
+                 for x in (ch_k, bl_k, od_k, prm, n_cand)]
+        fn = mapreduce.treesearch_over_mesh(self.mesh, model=model,
+                                            site_chunk=self.site_chunk)
+        return mapreduce.unpad_rows(fn(patterns, weights, *parts),
+                                    ch_k.shape[0])
 
     def _make_step(self, patterns, weights, model: str, n: int, root: int,
                    round_secs: Dict[int, float]):
@@ -651,10 +656,8 @@ class TreeSearcher:
                             od_k[k, :n_cand[k]] = c[2]
                         with _trace.span("search.score",
                                          candidates=int(n_cand.sum())):
-                            lls = score_fleet(
-                                patterns, weights, ch_k, bl_k, od_k, prm,
-                                model=model, site_chunk=self.site_chunk,
-                                n_cand=n_cand)
+                            lls = self._score(patterns, weights, ch_k, bl_k,
+                                              od_k, prm, n_cand, model)
                         for k in range(K):
                             if not active[k]:
                                 continue

@@ -1,6 +1,6 @@
 """SearchEngine: batched query-vs-database homology search.
 
-The port of ``repro.search.engine``, on one device:
+The port of ``repro.search.engine``:
 
   seed      every (query, DB row) pair runs the k-mer anchor chaining of
             ``core.kmer_index`` against that row's table from the
@@ -8,7 +8,9 @@ The port of ``repro.search.engine``, on one device:
             score, and pairs below ``min_anchors`` never reach the DP. The
             pairs are chained on the device in chunks of DB rows, so the
             per-pair tables and the (pairs, T, r) candidate tensor stay
-            under ``SEED_BUDGET`` bytes.
+            under ``SEED_BUDGET`` bytes. On a mesh the DB's tables split
+            over the data axis and the count matrix is gathered
+            (``dist.mapreduce.search_over_mesh``).
   rescore   surviving pairs go through ``AlignEngine.align_pairs``: the
             full-DP kernel (local or global) or, under ``--backend
             banded``/``banded-pallas``, the banded kernels; raw scores
@@ -17,7 +19,8 @@ The port of ``repro.search.engine``, on one device:
 Host reduction: per-query hits are gated (``max_evalue``,
 ``min_coverage``), ordered by (score desc, db index asc) — a total,
 deterministic order — and truncated to ``max_hits``, exactly as in the
-reference. The mesh-sharded seed stage (``mesh=``) is not ported.
+reference. Counts are per-pair integers, so hits are the same on every
+mesh shape.
 """
 from __future__ import annotations
 
@@ -48,8 +51,6 @@ _H_RESCORE = _obs.histogram("repro_search_rescore_seconds",
 
 # bytes of per-pair tables and candidate tensors one seed chunk may hold
 SEED_BUDGET = 2 << 30
-_NO_MESH = ("a mesh-sharded seed stage is not ported yet (ROADMAP.md §1 "
-            "item 11, the distributed runtime)")
 
 
 def seed_counts_batch(Q, qlens, dblens, tables, *, k: int, stride: int,
@@ -132,7 +133,8 @@ class SearchConfig:
 @dataclasses.dataclass(frozen=True)
 class SearchEngine:
     """One configured search engine on ``device`` (raises when CUDA is
-    asked for and absent)."""
+    asked for and absent); ``mesh`` (a ``dist.sharding.Mesh``) splits the
+    seed stage over its data axis."""
 
     cfg: SearchConfig = SearchConfig()
     mesh: Optional[object] = None
@@ -140,8 +142,6 @@ class SearchEngine:
     device: str = "cuda"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(_NO_MESH)
         resolve_device(self.device)
 
     # ------------------------------------------------------------ index
@@ -163,9 +163,23 @@ class SearchEngine:
         return Q, qlens
 
     def seed_counts(self, Q, qlens, index: SearchIndex) -> np.ndarray:
-        """(B, D) anchor counts, computed on the engine's device."""
+        """(B, D) anchor counts, computed on the engine's device; split
+        over the DB on a mesh (tables sharded, queries on every rank)."""
         cfg = self.cfg
         dev = resolve_device(self.device)
+        if self.mesh is not None:
+            from ..dist import mapreduce
+            fn = mapreduce.search_over_mesh(
+                self.mesh, k=index.k, stride=cfg.stride,
+                max_anchors=cfg.max_anchors, max_seg=cfg.chain_seg,
+                data_axis=self.data_axis)
+            counts = fn(torch.as_tensor(Q, device=dev),
+                        torch.as_tensor(qlens, device=dev).to(torch.int32),
+                        mapreduce.shard_padded(index.lens, self.mesh,
+                                               self.data_axis),
+                        mapreduce.shard_padded(index.tables, self.mesh,
+                                               self.data_axis))
+            return counts[:, :index.n_seqs].cpu().numpy()
         counts = seed_counts_batch(
             torch.as_tensor(Q, device=dev),
             torch.as_tensor(qlens, device=dev).to(torch.int32),
@@ -199,8 +213,9 @@ class SearchEngine:
         names = list(names)
         Q, qlens = self._encode_queries(seqs)
         B = Q.shape[0]
+        seed = "mesh" if self.mesh is not None else "host"
         with _trace.span("search.seed", n_queries=B, db_seqs=index.n_seqs,
-                         seed="host"):
+                         seed=seed):
             counts = self.seed_counts(Q, qlens, index)      # (B, D)
 
         cand = (np.ones_like(counts, bool) if exhaustive
@@ -260,5 +275,5 @@ class SearchEngine:
                 "candidates": n_cand,
                 "survival": round(n_cand / max(B * index.n_seqs, 1), 4),
                 "align_calls": n_calls,
-                "seed": "host",
+                "seed": seed,
                 "exhaustive": bool(exhaustive)}}

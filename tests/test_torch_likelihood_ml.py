@@ -322,10 +322,24 @@ def test_refine_matches_reference(refined):
 
 
 def test_refiner_refuses_a_mesh_and_defaults_to_the_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tml.MLRefiner(gap_code=GAP, mesh=object())
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    """A mesh is ported: in a world of one the refined tree and the
+    bootstrap support are the refiner's without one. Without a card the
+    default device raises."""
+    from repro_torch.launch import mesh as lm
     msa, ch, bl, rt = _family(0, n=5, L=40)
+    kw = dict(gap_code=GAP, model="jc69", steps=5, nni_rounds=1,
+              device="cpu")
+    one = tml.MLRefiner(**kw)
+    with lm.world("cpu"):
+        ref = tml.MLRefiner(mesh=lm.mesh_from_arg(None, device="cpu"), **kw)
+        got = ref.refine(msa, ch, bl, rt)
+        sup = ref.bootstrap(msa, got.children, got.blen, got.root, 6)
+    want = one.refine(msa, ch, bl, rt)
+    assert got.children.tobytes() == want.children.tobytes()
+    assert got.blen.tobytes() == want.blen.tobytes()
+    np.testing.assert_array_equal(sup, one.bootstrap(
+        msa, want.children, want.blen, want.root, 6))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         tml.MLRefiner(gap_code=GAP).refine(msa, ch, bl, rt)
 

@@ -118,8 +118,10 @@ def test_msa_config_entry_points_default_to_the_card(entry, monkeypatch):
                                    ["--tree", "ml"],
                                    ["--tree", "ml", "--tree-ll"]])
 def test_unported_flags_name_the_roadmap(runs, flags, tmp_path, capsys):
-    """``--dist`` exits naming its roadmap item; ``--tree ml`` is ported
-    and reports its model and logL before/after."""
+    """``--tree ml`` is ported and reports its model and logL
+    before/after. ``--dist`` is ported: in a world of one on the CPU its
+    files are the host run's (``--tree tiled`` against the same run
+    without ``--dist``) and its report's ``kmer_fallbacks`` is null."""
     d, names = runs
     if "ml" in flags:
         trun.main(["--fasta", str(d / "in.fa"), "--device", "cpu",
@@ -132,9 +134,20 @@ def test_unported_flags_name_the_roadmap(runs, flags, tmp_path, capsys):
         assert len(_splits((tmp_path / "tree.nwk").read_text(),
                            names)) == len(names) - 3
         return
-    with pytest.raises(SystemExit):
-        trun.main(["--fasta", str(d / "in.fa"), "--device", "cpu", *flags])
-    assert "ROADMAP.md" in capsys.readouterr().err
+    host = d / "torch"
+    if "tiled" in flags:
+        host = tmp_path / "host"
+        trun.main(["--fasta", str(d / "in.fa"), "--device", "cpu",
+                   "--out", str(host), *flags[1:]])
+    trun.main(["--fasta", str(d / "in.fa"), "--device", "cpu",
+               "--out", str(tmp_path / "dist"), *flags])
+    for f in ("aligned.fasta", "tree.nwk"):
+        assert (tmp_path / "dist" / f).read_bytes() == \
+            (host / f).read_bytes(), f
+    report = json.loads((tmp_path / "dist" / "report.json").read_text())
+    assert report["kmer_fallbacks"] is None
+    assert report["tree_backend"] == ("tiled-exact" if "tiled" in flags
+                                      else "dense")
 
 
 def _imported_modules(path: Path):

@@ -124,9 +124,26 @@ def test_index_files_cross_load(planted, tmp_path):
         SearchIndex.load(tmp_path / "future.npz")
 
 
-def test_engine_refuses_a_mesh_and_defaults_to_the_card(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SearchEngine(SearchConfig(), mesh=object(), device="cpu")
+def test_engine_refuses_a_mesh_and_defaults_to_the_card(planted,
+                                                        monkeypatch):
+    """A mesh is ported: in a world of one the seed counts and hits are
+    the engine's without one (the hits' ``seed`` stat aside). Without a
+    card the default device raises."""
+    from repro_torch.launch import mesh as lm
+    names, seqs, query, _, tidx = planted
+    qn, qs = _queries(query)
+    host = SearchEngine(SearchConfig(**GATES), device="cpu")
+    with lm.world("cpu"):
+        mesh = lm.mesh_from_arg(None, device="cpu")
+        eng = SearchEngine(SearchConfig(**GATES), mesh=mesh, device="cpu")
+        Q, qlens = eng._encode_queries(qs)
+        np.testing.assert_array_equal(eng.seed_counts(Q, qlens, tidx),
+                                      host.seed_counts(Q, qlens, tidx))
+        got = eng.search(qn, qs, tidx)
+    ref = host.search(qn, qs, tidx)
+    assert got["stats"].pop("seed") == "mesh"
+    assert ref["stats"].pop("seed") == "host"
+    assert got == ref
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         SearchEngine(SearchConfig())
@@ -163,13 +180,15 @@ def test_pipeline_family_byte_identical(pipeline_runs):
                    names) == ref_splits
 
 
-@pytest.mark.parametrize("flags", [["--dist"], ["--mesh", "2x1"],
+@pytest.mark.parametrize("flags", [["--dist"], ["--mesh", "1x1"],
                                    ["--bootstrap", "1"]])
 def test_unported_flags_name_the_roadmap(pipeline_runs, flags, tmp_path,
                                          capsys):
-    """``--dist``/``--mesh`` exit naming their roadmap item;
-    ``--bootstrap`` is ported: the family tree is ML-refined and
-    carries support."""
+    """``--bootstrap`` is ported: the family tree is ML-refined and
+    carries support. ``--dist``/``--mesh`` are ported: in a world of one
+    on the CPU the hits and the family's files are the host run's (the
+    hits' ``seed`` stat aside), and a mesh larger than the world is
+    refused."""
     d = pipeline_runs
     if flags[0] == "--bootstrap":
         trun.main(["--db", str(d / "db.fasta"), "--query",
@@ -182,12 +201,24 @@ def test_unported_flags_name_the_roadmap(pipeline_runs, flags, tmp_path,
         assert fam["refine"] == "ml" and fam["tree_backend"] == "dense+ml"
         assert 0.0 <= fam["mean_support"] <= 1.0
         return
-    with pytest.raises(SystemExit):
-        trun.main(["--db", str(d / "db.fasta"), "--query",
-                   str(d / "q.fasta"), "--out", str(d / "never"),
-                   "--device", "cpu", *flags])
-    assert "ROADMAP.md" in capsys.readouterr().err
-    assert not (d / "never").exists()
+    common = ["--db", str(d / "db.fasta"), "--query", str(d / "q.fasta"),
+              "--max-hits", "4", "--max-evalue", "1e-6", "--pipeline",
+              "--bootstrap", "0", "--score", "global", "--backend",
+              "banded-pallas", "--device", "cpu"]
+    trun.main(common + ["--out", str(tmp_path / "mesh"), *flags])
+    got = json.loads((tmp_path / "mesh" / "hits.json").read_text())
+    ref = json.loads((d / "torch" / "hits.json").read_text())
+    assert got["stats"].pop("seed") == "mesh"
+    assert ref["stats"].pop("seed") == "host"
+    assert got == ref
+    fam = "family_000_query"
+    for f in ("aligned.fasta", "tree.nwk"):
+        assert (tmp_path / "mesh" / fam / f).read_bytes() == \
+            (d / "torch" / fam / f).read_bytes()
+    with pytest.raises(ValueError, match="needs 2 ranks, the world has 1"):
+        trun.main(common + ["--out", str(tmp_path / "never"), "--mesh",
+                            "2x1"])
+    assert not (tmp_path / "never").exists()
 
 
 def test_search_run_defaults_to_the_card(pipeline_runs, monkeypatch):

@@ -99,6 +99,19 @@ def test_unported_tree_paths_raise():
                      ml_steps=10, nni_rounds=1, device="cpu").build(msa)
     assert res.backend == "dense+ml" and res.model == "k80"
     assert res.logl["final"] >= res.logl["initial"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TreeEngine(gap_code=5, n_chars=5, backend="tiled", mesh=object(),
-                   device="cpu").build(msa)
+    # a mesh is ported: in a world of one the tree is the engine's
+    # without one; auto takes the tiled pipeline on more than one rank
+    from repro_torch.dist.sharding import Mesh
+    from repro_torch.launch import mesh as lm
+    from repro_torch.phylo import resolve_tree_backend
+    with lm.world("cpu"):
+        got = TreeEngine(gap_code=5, n_chars=5, backend="tiled",
+                         mesh=lm.mesh_from_arg(None, device="cpu"),
+                         device="cpu").build(msa)
+    assert got.newick() == TreeEngine(gap_code=5, n_chars=5,
+                                      backend="tiled",
+                                      device="cpu").build(msa).newick()
+    two = Mesh((2, 1), ("data", "model"), None, 0, 2, torch.device("cpu"))
+    assert resolve_tree_backend("auto", n=100, mesh=two) == "tiled-exact"
+    assert resolve_tree_backend("auto", n=300, mesh=two) == "tiled"
+    assert resolve_tree_backend("auto", n=300) == "cluster"

@@ -520,11 +520,29 @@ def test_tree_engine_cache_and_two_leaves():
 
 
 def test_unported_tree_options_raise():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _ctx(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TreeEngine(gap_code=GAP, n_chars=NCH, backend="tiled", mesh=object(),
-                   device="cpu").build(_rand_msa(8, 30))
+    """A mesh is ported: in a world of one the strips, the assignment and
+    the tiled tree are bitwise those without one."""
+    from repro_torch.launch import mesh as lm
+    msa = _rand_msa(30, 40)
+    with lm.world("cpu"):
+        mesh = lm.mesh_from_arg(None, device="cpu")
+        ctx = _ctx(mesh=mesh, row_block=8)
+        strips = [s for _, _, s in ctx.strips(msa)]
+        near = ctx.nearest_assign(msa, msa[:3])
+        tree = TreeEngine(gap_code=GAP, n_chars=NCH, backend="tiled",
+                          row_block=8, target_cluster=6, mesh=mesh,
+                          device="cpu").build(msa)
+    one = _ctx(row_block=8)
+    assert np.concatenate(strips).tobytes() == np.concatenate(
+        [s for _, _, s in one.strips(msa)]).tobytes()
+    for a, b in zip(near, one.nearest_assign(msa, msa[:3])):
+        assert a.tobytes() == b.tobytes()
+    want = TreeEngine(gap_code=GAP, n_chars=NCH, backend="tiled",
+                      row_block=8, target_cluster=6,
+                      device="cpu").build(msa)
+    assert tree.backend == want.backend == "tiled"
+    assert tree.children.tobytes() == want.children.tobytes()
+    assert tree.blen.tobytes() == want.blen.tobytes()
     # refine="search" is ported: it runs on any backend's tree
     res = TreeEngine(gap_code=GAP, n_chars=NCH, backend="tiled",
                      refine="search", model="jc69", starts=2, spr_radius=1,

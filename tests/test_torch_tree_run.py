@@ -136,8 +136,9 @@ def test_tree_run_dense_tree_and_loglik(tree_runs, aligned):
 
 
 # the refinement flags (ROADMAP §1 item 9) run on 10 of the rows, each
-# checked on its report field; --dist and --mesh still exit naming
-# item 11. Base settings keep every refinement to a few Adam steps.
+# checked on its report field; --dist and --mesh (item 11) run in a world
+# of one against the same run without them. Base settings keep every
+# refinement to a few Adam steps.
 _ML = ["--refine", "ml", "--model", "jc69", "--ml-steps", "5",
        "--nni-rounds", "1"]
 _SEARCH = ["--refine", "search", "--model", "jc69", "--ml-steps", "5",
@@ -192,11 +193,14 @@ def small(aligned):
     (["--model"], "item 9"), (["--ml-steps"], "item 9"),
     (["--nni-rounds"], "item 9"), (["--starts"], "item 9"),
     (["--spr-radius"], "item 9"), (["--search-rounds"], "item 9"),
-    (["--dist"], "item 11"), (["--mesh", "2x1"], "item 11")])
+    (["--dist"], "item 11"), (["--mesh", "1x1"], "item 11")])
 def test_tree_run_unported_flags_name_the_roadmap(aligned, small, flags,
                                                   item, tmp_path, capsys):
     """Item 9's flags are ported: each runs on the CPU and shows in its
-    report field. Item 11's still exit naming the roadmap item."""
+    report field. Item 11's are ported too: ``--dist`` (the tiled
+    backend's strips over the mesh) and ``--mesh 1x1`` (ML bootstrap over
+    the mesh) in a world of one give the Newick of the same run without
+    them."""
     d, _, _ = aligned
     if item == "item 9":
         argv, check = _RUNS[" ".join(flags)]
@@ -208,12 +212,15 @@ def test_tree_run_unported_flags_name_the_roadmap(aligned, small, flags,
         assert check(report, out), report
         assert (out / "tree.nwk").read_text().count(",") == 9
         return
-    with pytest.raises(SystemExit):
-        ttree_run.main(["--fasta", str(d / "aligned.fa"), "--device", "cpu",
-                        "--out", str(d / "never"), *flags])
-    err = capsys.readouterr().err
-    assert "ROADMAP.md" in err and item in err
-    assert not (d / "never").exists()
+    extra = (["--backend", "tiled", "--row-block", "4", "--target-cluster",
+              "4"] if flags == ["--dist"] else _ML + ["--bootstrap", "5"])
+    for name, f in (("mesh", flags + extra), ("one", extra)):
+        ttree_run.main(["--fasta", str(small), "--device", "cpu",
+                        "--out", str(tmp_path / name), *f])
+    assert (tmp_path / "mesh" / "tree.nwk").read_bytes() == \
+        (tmp_path / "one" / "tree.nwk").read_bytes()
+    assert _report(tmp_path, "mesh")["backend"] == (
+        "tiled" if flags == ["--dist"] else "dense+ml")
 
 
 def test_tree_run_cuda_without_card_raises(aligned, monkeypatch):

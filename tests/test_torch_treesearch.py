@@ -273,9 +273,15 @@ def test_resilient_loop_replays_and_gives_up(tmp_path):
                              max_failures=2).run({"x": np.int64(0)}, Steps())
 
 
-def test_searcher_validation():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tts.TreeSearcher(gap_code=5, mesh=object())
+def test_searcher_validation(msa8):
+    """A mesh is ported: in a world of one the fleet's scoring over it
+    gives the fleet of one process, bit for bit."""
+    from repro_torch.launch import mesh as lm
+    kw = dict(BASE, rounds=1, steps=5, device="cpu")
+    with lm.world("cpu"):
+        got = tts.TreeSearcher(mesh=lm.mesh_from_arg(None, device="cpu"),
+                               **kw).search(msa8)
+    _same(got, tts.TreeSearcher(**kw).search(msa8))
     with pytest.raises(ValueError, match="at least one start"):
         tts.TreeSearcher(gap_code=5, starts=0)
 
