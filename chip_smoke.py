@@ -135,6 +135,31 @@ Phases, in order; any failure exits non-zero:
      rank runs those ``tree_run``s with ``--mesh 1x1``: equal Newick
      files; each rank prints its stage seconds, device peak and kernel
      launches;
+ 19. the MSA service (``repro_torch.serve``, ``launch/serve_msa``), at
+     ``--method plain`` (the coalesced route) over HTTP: (a)
+     ``MSAService`` with ``serve_http`` on a thread (``--max-batch 8192
+     --max-wait-ms 50``, phase 8's index, a store directory): ``/align``
+     of phase 6's 4,096 sequences (4,095 pairs, one kernel-1 batch; rows
+     decode to their inputs, one width, no all-gap column, the rows equal
+     ``center_star_msa`` plain; kernel 1's largest call held against its
+     plain version), the same again (a byte-identical cache hit), eight
+     concurrent ``/align`` of 256 from a 2,048-sequence family (one
+     coalesced batch at least; each response equal to the request alone
+     on a fresh service), ``/align/add`` of 64 members (old rows =
+     ``expand_rows`` of the stored ones; equal to the full realign with
+     the same center), ``/tree`` (kernel 2 launched and held; RF 0
+     against ``tree_run`` at the same backend on the same rows),
+     ``/search`` of phase 8's queries (phase 8's local hits), then drain:
+     started == finished + rejected; (b) a spawned ``serve_msa
+     --store-dir``: a named alignment of 1,024 and three adds of 16,
+     SIGKILL, a restart that reads the store back bit-identical, one more
+     add at the next generation, SIGTERM drains with exit code 0; (c)
+     ``serve_msa --dist --dist-threshold 1024`` on 1 and on 2 spawned
+     ``gloo`` ranks sharing the card: ``/align`` of 2,048 sequences at
+     phase 18's indel rate (``path: "dist"``) and ``/tree --backend
+     tiled`` equal on both worlds; each request's wall ms, the device
+     peaks, kernel launches (counted by the service's worker threads, read
+     after each request) and the queue's batches are printed;
  and print each kernel on its own path as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -838,7 +863,7 @@ class Observe:
             (msa, "map1_align_to_center", self._stage("map1")),
             (msa, "assemble_center_star", self._stage("assemble")),
             (SearchEngine, "seed_counts", self._stage("search.seed")),
-            (AlignEngine, "align_pairs", self._stage("search.rescore"))]
+            (AlignEngine, "align_pairs", self._stage("align_pairs"))]
         if tree:
             self.targets += [(mv_ops, "match_valid", self._keep_mv),
                              (mv_ops, "match_valid_groups",
@@ -1871,6 +1896,548 @@ def dist_phase(fam, work: Path, route: str = "cuda") -> None:
                    ("tree.nwk",), f"tree_run {job} --mesh 2x1 against 1x1")
 
 
+# ---------------------------------------------------------- the MSA service
+
+SERVE_CFG = dict(max_batch=8192, max_wait_ms=50.0)   # --max-batch/--max-wait-ms
+N_FAMILY2 = 2048        # the concurrent requests' and the store's family
+N_CONCURRENT = 8        # concurrent /align requests of N_EACH sequences
+N_EACH = 256
+N_ADD = 64              # /align/add onto the 4,096 alignment
+N_NAMED = 1024          # the named alignment of phase 19(b)
+SERVE_TIMEOUT = 300     # seconds an HTTP wait or a spawned server may take
+SERVE_DIST_THRESHOLD = 1024   # serve_msa --dist --dist-threshold
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(port: int, path: str, obj=None, timeout=SERVE_TIMEOUT):
+    """POST ``obj`` as JSON (GET when None) to the local server; returns
+    (status, body bytes, wall ms)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=None if obj is None else json.dumps(obj).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            code, body = r.status, r.read()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read()
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def post_ok(port: int, path: str, obj, what: str) -> dict:
+    """A request that must answer 200; prints its wall ms."""
+    code, body, ms = http(port, path, obj)
+    if code != 200:
+        fail(f"service {what}: HTTP {code}: {body[:400]!r}")
+    print(f"service {what}: {ms:.1f} ms wall")
+    return json.loads(body)
+
+
+def wait_healthy(port: int, alive, what: str) -> None:
+    """Poll ``/healthz`` until it answers; fail if ``alive()`` turns
+    false or ``SERVE_TIMEOUT`` passes."""
+    import urllib.error
+    deadline = time.time() + SERVE_TIMEOUT
+    while True:
+        try:
+            if http(port, "/healthz", timeout=5)[0] == 200:
+                return
+        except (urllib.error.URLError, OSError):
+            pass
+        if not alive():
+            fail(f"{what} died before it served")
+        if time.time() > deadline:
+            fail(f"{what} did not serve within {SERVE_TIMEOUT} s")
+        time.sleep(0.5)
+
+
+def strip_volatile(resp: dict) -> dict:
+    return {k: v for k, v in resp.items()
+            if k not in ("elapsed_ms", "trace_id", "cache")}
+
+
+def newick_splits(nwk: str) -> set:
+    """The non-trivial splits of a Newick tree, each as the frozenset of
+    leaf names on the side without the first name in sort order."""
+    stack, clades, prev = [set()], [], "("
+    for tok in re.findall(r"[(),]|[^(),;]+", nwk):
+        if tok == "(":
+            stack.append(set())
+        elif tok == ")":
+            clade = stack.pop()
+            clades.append(frozenset(clade))
+            stack[-1] |= clade
+        elif tok != "," and prev in "(,":
+            stack[-1].add(tok.split(":")[0])
+        prev = tok
+    leaves = frozenset(stack[0])
+    first = min(leaves)
+    return {c if first not in c else leaves - c for c in clades
+            if 1 < len(c) < len(leaves) - 1}
+
+
+def check_alignment(aln: dict, names, seqs, what: str):
+    """One width, every row its input ungapped, no all-gap column (every
+    column holds a center char or some row's insertion); returns the rows
+    as an (N, W) uint8 array."""
+    rows = aln["rows"]
+    if aln["names"] != list(names):
+        fail(f"service {what}: names differ from the request")
+    if any(len(r) != aln["width"] for r in rows):
+        fail(f"service {what}: rows of more than one width")
+    if any(r.replace("-", "") != s for r, s in zip(rows, seqs)):
+        fail(f"service {what}: a row is not its input sequence")
+    arr = np.frombuffer("".join(rows).encode(), np.uint8).reshape(
+        len(rows), aln["width"])
+    if not (arr != ord("-")).any(axis=0).all():
+        fail(f"service {what}: an all-gap column")
+    c = aln["center_idx"]
+    if int((arr[c] != ord("-")).sum()) != len(seqs[c]):
+        fail(f"service {what}: the center row is not its sequence")
+    return arr
+
+
+def mutants(seqs, n: int, seed: int):
+    """``n`` new members: copies of ``seqs`` members with 3 substitutions
+    and a 2-base insertion each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in rng.choice(len(seqs), n, replace=False):
+        s = list(seqs[i])
+        for _ in range(3):
+            s[rng.integers(len(s))] = "ACGT"[rng.integers(4)]
+        p = int(rng.integers(len(s)))
+        out.append("".join(s[:p]) + "GA" + "".join(s[p:]))
+    return out
+
+
+def serve_inprocess(fam, fam2, work: Path, route: str) -> None:
+    """Phase 19(a): ``MSAService`` with ``serve_http`` on a thread."""
+    import threading
+
+    import torch
+    from repro_torch.align.bucketing import pair_bucket_plan
+    from repro_torch.align.engine import AlignEngine
+    from repro_torch.core import alphabet as ab
+    from repro_torch.core.msa import MSAConfig, center_star_msa
+    from repro_torch.data import read_fasta, write_fasta
+    from repro_torch.launch import tree_run
+    from repro_torch.obs import metrics
+    from repro_torch.search import SearchIndex
+    from repro_torch.serve import MSAService, ServiceConfig, serve_http
+    from repro_torch.serve.cache import canonicalize
+    from repro_torch.serve.incremental import center_profile, expand_rows
+    device = "cuda" if route == "cuda" else "cpu"
+    plain = MSAConfig(method="plain")
+    gap = ab.DNA.gap_code
+    store = work / "serve_store_a"
+    if store.exists():
+        import shutil
+        shutil.rmtree(store)
+    svc = MSAService(ServiceConfig(
+        **SERVE_CFG, store_dir=str(store), device=device,
+        search_index=SearchIndex.load(work / "db.idx.npz")))
+    httpd = serve_http(svc, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        # /align: 4,095 pairs through kernel 1 in one coalesced batch
+        with Observe() as obs:
+            r1 = post_ok(port, "/align", {"names": fam.names,
+                                          "sequences": fam.seqs},
+                         f"/align {len(fam.seqs)}")
+        aln = r1["alignment"]
+        arr = check_alignment(aln, fam.names, fam.seqs,
+                              f"/align {len(fam.seqs)}")
+        print(f"service /align {len(fam.seqs)}: path {r1['path']}, "
+              f"width {aln['width']}, coalesce {json.dumps(r1['coalesce'])}"
+              f", peak device memory {obs.peaks()}, kernel launches "
+              f"{json.dumps(obs.launches)} (counted by the coalescer's "
+              "worker thread, read after the request)")
+        if r1["path"] != "coalesced" or obs.launches["gotoh_forward"] <= 0:
+            fail(f"service /align: path {r1['path']}, launches "
+                 f"{obs.launches}")
+        canon, perm = canonicalize(fam.seqs)
+        want = center_star_msa(canon, plain, device=device)
+        if not np.array_equal(ab.DNA.encode_aligned_rows(
+                [aln["rows"][p] for p in perm]), want.msa):
+            fail("service /align: rows differ from center_star_msa "
+                 "--method plain on the same family")
+        print("service /align: rows equal center_star_msa --method plain")
+        err, _ = hold_path_calls((("service /align", obs),))
+        if err["gotoh_forward"] != 0:
+            fail("kernel 1 disagrees with its plain version on the "
+                 "service's batch")
+        code, body, ms = http(port, "/align", {"names": fam.names,
+                                               "sequences": fam.seqs})
+        r2 = json.loads(body)
+        if code != 200 or not r2["cached"] or json.dumps(
+                r2["alignment"]) != json.dumps(aln):
+            fail("service /align again: not a byte-identical cache hit")
+        print(f"service /align {len(fam.seqs)} again: cached, "
+              f"byte-identical, {ms:.1f} ms wall")
+
+        # eight concurrent /align requests of 256 sequences
+        chunks = [(fam2.names[i * N_EACH:(i + 1) * N_EACH],
+                   fam2.seqs[i * N_EACH:(i + 1) * N_EACH])
+                  for i in range(N_CONCURRENT)]
+        q0 = svc.coalescer.stats()
+        out = [None] * N_CONCURRENT
+        # each merged batch: (pairs, the bucket count of its own query
+        # and target lengths, the engine calls it made)
+        batches = []
+        t0 = time.perf_counter()
+        with Observe() as cobs:
+            staged = AlignEngine.align_pairs
+
+            def planned(engine, Q, qlens, T, tlens):
+                res = staged(engine, Q, qlens, T, tlens)
+                plan = pair_bucket_plan(
+                    torch.as_tensor(qlens).cpu().numpy(),
+                    torch.as_tensor(tlens).cpu().numpy(), Q.shape[1],
+                    T.shape[1], min_bucket=engine.min_bucket)
+                batches.append((int(Q.shape[0]), len(plan),
+                                int(res.n_calls)))
+                return res
+            AlignEngine.align_pairs = planned
+            try:
+                threads = [threading.Thread(
+                    target=lambda i=i: out.__setitem__(i, http(
+                        port, "/align", {"names": chunks[i][0],
+                                         "sequences": chunks[i][1]})))
+                    for i in range(N_CONCURRENT)]
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(SERVE_TIMEOUT)
+            finally:
+                AlignEngine.align_pairs = staged
+        wall = (time.perf_counter() - t0) * 1e3
+        q1 = svc.coalescer.stats()
+        metas = []
+        for i, res in enumerate(out):
+            if res is None or res[0] != 200:
+                fail(f"service concurrent /align {i}: {res and res[:2]}")
+            metas.append(json.loads(res[1])["coalesce"])
+        print(f"service {N_CONCURRENT} concurrent /align of {N_EACH}: "
+              f"{wall:.1f} ms wall, each "
+              f"{[round(r[2], 1) for r in out]} ms; coalesce {metas}; "
+              f"queue batches {q1['batches'] - q0['batches']}, "
+              f"coalesced_jobs {q1['coalesced_jobs'] - q0['coalesced_jobs']}"
+              f", engine_calls {q1['engine_calls'] - q0['engine_calls']}; "
+              f"batches (pairs, buckets, engine calls) {batches}; peak "
+              f"device memory {cobs.peaks()}, kernel launches "
+              f"{json.dumps(cobs.launches)}")
+        if max(m["batch_jobs"] for m in metas) <= 1:
+            fail("service: no concurrent /align was coalesced")
+        if any(calls > buckets for _, buckets, calls in batches):
+            fail("service: a batch made more engine calls than buckets")
+        if not {(m["batch_pairs"], m["engine_calls"]) for m in metas} <= {
+                (b, calls) for b, _, calls in batches}:
+            fail(f"service: responses' batches {metas} are not the "
+                 f"batches that ran {batches}")
+        fresh = MSAService(ServiceConfig(**SERVE_CFG, device=device))
+        try:
+            for i, (names, seqs) in enumerate(chunks):
+                alone = fresh.align(names, seqs)["alignment"]
+                if json.dumps(alone) != json.dumps(
+                        json.loads(out[i][1])["alignment"]):
+                    fail(f"service concurrent /align {i} differs from the "
+                         "same request alone on a fresh service")
+        finally:
+            fresh.drain()
+        print("service concurrent /align: each equal to the request alone")
+
+        # /align/add of 64 members onto the 4,096 alignment
+        new = mutants(fam.seqs, N_ADD, seed=19)
+        ra = post_ok(port, "/align/add", {
+            "msa_id": aln["msa_id"], "names": [f"new{i}" for i in
+                                               range(N_ADD)],
+            "sequences": new}, f"/align/add {N_ADD}")
+        if ra["add"]["realigned"]:
+            fail(f"service /align/add realigned: {ra['add']}")
+        old = ab.DNA.encode_aligned_rows([aln["rows"][p] for p in perm])
+        got = ab.DNA.encode_aligned_rows(ra["alignment"]["rows"])
+        cidx = ra["alignment"]["center_idx"]
+        g_old = center_profile(old, cidx, gap)[2]
+        g_new = center_profile(got, cidx, gap)[2]
+        if not np.array_equal(got[:len(canon)],
+                              expand_rows(old, cidx, g_old, g_new, gap)):
+            fail("service /align/add: old rows are not expand_rows of the "
+                 "stored rows")
+        full = center_star_msa(canon + new, plain, device=device)
+        if full.center_idx != cidx or not np.array_equal(got, full.msa):
+            fail("service /align/add differs from a full realign with the "
+                 "same center")
+        print(f"service /align/add {N_ADD}: width {aln['width']} -> "
+              f"{ra['alignment']['width']} (growth {ra['add']['growth']}); "
+              "old rows = expand_rows of the stored ones; equal to the "
+              "full realign")
+
+        # /tree on the 4,096 alignment (kernel 2), against tree_run
+        with Observe(tree=True) as tobs:
+            rt = post_ok(port, "/tree", {"msa_id": aln["msa_id"]},
+                         f"/tree {len(fam.seqs)}")
+        print(f"service /tree: backend {rt['backend']}, peak device memory "
+              f"{tobs.peaks()}, kernel launches {json.dumps(tobs.launches)}"
+              f" (match_valid by route {json.dumps(tobs.mv_routes)})")
+        if tobs.launches["match_valid"] <= 0:
+            fail("kernel 2 was not launched on the service's /tree")
+        if hold_tree_calls((("service /tree", tobs),)) != 0:
+            fail("kernel 2 disagrees with its plain version on /tree")
+        fa = work / "serve_tree_rows.fa"
+        names_c = [fam.names[p] for p in perm]
+        write_fasta(fa, names_c, [aln["rows"][p] for p in perm])
+        tree_run.main(["--fasta", str(fa), "--out",
+                       str(work / "serve_tree_run"), "--backend",
+                       rt["backend"].split("-")[0], "--device", device])
+        nwk = (work / "serve_tree_run" / "tree.nwk").read_text().strip()
+        if nwk != rt["newick"] and newick_splits(nwk) != newick_splits(
+                rt["newick"]):
+            fail("service /tree is not RF 0 against tree_run")
+        print(f"service /tree: RF 0 against tree_run --backend "
+              f"{rt['backend']} ({'equal' if nwk == rt['newick'] else 'rooted apart'})")
+
+        # /search of phase 8's queries: phase 8's local hits
+        q_names, q_seqs = read_fasta(work / "q.fa")
+        rs = post_ok(port, "/search", {"names": q_names,
+                                       "sequences": q_seqs}, "/search")
+        hits = json.loads((work / "local" / "hits.json").read_text())
+        if rs["queries"] != hits["queries"] or {
+                k: v for k, v in rs["stats"].items() if k != "seed"} != {
+                k: v for k, v in hits["stats"].items() if k != "seed"}:
+            fail("service /search differs from search_run --score local")
+        print("service /search: hits equal phase 8's search_run --score "
+              "local")
+
+        health = json.loads(http(port, "/healthz")[1])
+        text = http(port, "/metrics")[1].decode()
+        if "repro_requests_started_total" not in text:
+            fail("/metrics lacks the request counters")
+        print(f"service /healthz: backend {health['backend']}, queue "
+              f"{json.dumps(health['queue'])}, cache "
+              f"{json.dumps(health['cache'])}, store "
+              f"{json.dumps(health['store'])}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.drain()
+    snap = metrics.REGISTRY.snapshot()
+    tot = {f: sum(x["value"] for x in snap.get(f, {"samples": []})[
+        "samples"]) for f in ("repro_requests_started_total",
+                              "repro_requests_finished_total",
+                              "repro_requests_rejected_total")}
+    if tot["repro_requests_started_total"] != (
+            tot["repro_requests_finished_total"]
+            + tot["repro_requests_rejected_total"]):
+        fail(f"service counters do not reconcile after drain: {tot}")
+    print(f"service drained: requests {json.dumps(tot)}")
+    del svc
+    torch.cuda.empty_cache()
+
+
+def spawn_server(argv, log: Path):
+    """``python -m repro_torch.launch.serve_msa`` on a free port, its
+    output in ``log``; returns (process, port) once it serves."""
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(log, "ab") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve_msa", "--port",
+             str(port), *argv], env=env, cwd=ROOT, stdout=f,
+            stderr=subprocess.STDOUT)
+    try:
+        wait_healthy(port, lambda: proc.poll() is None, f"serve_msa {argv}")
+    except SystemExit:
+        proc.kill()
+        proc.wait()
+        print(log.read_text()[-4000:])
+        raise
+    return proc, port
+
+
+def stop_server(proc, sig) -> int:
+    import signal
+    if proc.poll() is None:
+        proc.send_signal(sig)
+    try:
+        return proc.wait(timeout=SERVE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"serve_msa did not stop within {SERVE_TIMEOUT} s of "
+             f"{signal.Signals(sig).name}")
+
+
+def serve_store_phase(fam2, work: Path, device: str) -> None:
+    """Phase 19(b): a spawned ``serve_msa --store-dir``: a named alignment,
+    three adds, SIGKILL, restart, the store read back bit-identical, one
+    more add, SIGTERM drains with exit code 0."""
+    import shutil
+    import signal
+    store = work / "serve_store_b"
+    if store.exists():
+        shutil.rmtree(store)
+    log = work / "serve_msa_b.log"
+    log.unlink(missing_ok=True)
+    argv = ["--store-dir", str(store), "--max-wait-ms", "5", "--device",
+            device]
+    names, seqs = fam2.names[:N_NAMED], fam2.seqs[:N_NAMED]
+    t0 = time.time()
+    proc, port = spawn_server(argv, log)
+    print(f"serve_msa --store-dir up in {time.time() - t0:.1f} s")
+    try:
+        r = post_ok(port, "/align", {"name": "phi_rna", "names": names,
+                                     "sequences": seqs},
+                    f"named /align {N_NAMED}")
+        if not r["created"]:
+            fail("named /align did not create")
+        for i in range(3):
+            new = mutants(seqs, 16, seed=30 + i)
+            r = post_ok(port, "/align/add", {
+                "name": "phi_rna", "names": [f"a{i}_{j}" for j in range(16)],
+                "sequences": new}, f"named /align/add 16 ({i + 1} of 3)")
+        last = r["alignment"]
+        if last["generation"] != 3:
+            fail(f"named adds: generation {last['generation']}, not 3")
+    finally:
+        stop_server(proc, signal.SIGKILL)
+    t0 = time.time()
+    proc, port = spawn_server(argv, log)
+    print(f"serve_msa restarted from the store in {time.time() - t0:.1f} s")
+    try:
+        back = post_ok(port, "/align", {"name": "phi_rna"},
+                       "named /align after SIGKILL")["alignment"]
+        for k in ("generation", "fingerprint", "rows", "names", "width",
+                  "center_idx"):
+            if back[k] != last[k]:
+                fail(f"the restarted store differs in {k}")
+        nxt = post_ok(port, "/align/add", {
+            "name": "phi_rna", "names": ["after"], "sequences":
+                mutants(seqs, 1, seed=40)}, "named /align/add after restart")
+        if nxt["alignment"]["generation"] != last["generation"] + 1:
+            fail("the add after the restart is not the next generation")
+        health = json.loads(http(port, "/healthz")[1])
+        print(f"serve_msa --store-dir: generation "
+              f"{nxt['alignment']['generation']}, store "
+              f"{json.dumps(health['store'])}, queue "
+              f"{json.dumps(health['queue'])}")
+    finally:
+        rc = stop_server(proc, signal.SIGTERM)
+    if rc != 0 or "drained; bye" not in log.read_text():
+        fail(f"serve_msa did not drain on SIGTERM (exit code {rc})")
+    print("serve_msa --store-dir: restored bit-identical after SIGKILL; "
+          "SIGTERM drained with exit code 0 (device peak of the server's "
+          "own process: not measured)")
+
+
+def serve_rank(rank: int, n: int, work: str, port: int, threshold: int,
+               device: str) -> None:
+    """A spawned rank of phase 19(c): ``gloo`` from a ``FileStore``, the
+    card shared, running ``serve_msa --dist``; writes its device peak to
+    ``work / f"serve{n}_rank{rank}.json"``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    work = Path(work)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(work / f"serve{n}_store"), n),
+        rank=rank, world_size=n, timeout=timedelta(seconds=SERVE_TIMEOUT))
+    try:
+        from repro_torch.launch import serve_msa
+        serve_msa.main(["--port", str(port), "--dist", "--dist-threshold",
+                        str(threshold), "--max-wait-ms", "5", "--device",
+                        device])
+    finally:
+        dist.destroy_process_group()
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    (work / f"serve{n}_rank{rank}.json").write_text(json.dumps(
+        {"peak_gib": round(peak / 2**30, 3)}))
+
+
+def serve_world(fam, work: Path, n: int, device: str) -> dict:
+    """Phase 19(c): ``serve_msa --dist`` on ``n`` spawned ranks; /align of
+    ``fam`` (path "dist") and /tree --backend tiled on it, then SIGTERM
+    to rank 0, which stops the others. Returns the two responses."""
+    import signal
+
+    import torch.multiprocessing as mp
+    (work / f"serve{n}_store").unlink(missing_ok=True)
+    port = free_port()
+    t0 = time.time()
+    ctx = mp.start_processes(serve_rank, args=(n, str(work), port,
+                                               SERVE_DIST_THRESHOLD, device),
+                             nprocs=n, join=False, start_method="spawn")
+    try:
+        wait_healthy(port, lambda: all(p.is_alive() for p in ctx.processes),
+                     f"serve_msa --dist on {n} rank(s)")
+        print(f"serve_msa --dist on {n} rank(s) up in "
+              f"{time.time() - t0:.1f} s")
+        ra = post_ok(port, "/align", {"names": fam.names,
+                                      "sequences": fam.seqs},
+                     f"/align {len(fam.seqs)} over {n} rank(s)")
+        if ra["path"] != "dist":
+            fail(f"/align over the mesh took path {ra['path']}")
+        rt = post_ok(port, "/tree", {"msa_id": ra["alignment"]["msa_id"],
+                                     "backend": "tiled"},
+                     f"/tree tiled over {n} rank(s)")
+        health = json.loads(http(port, "/healthz")[1])
+        os.kill(ctx.processes[0].pid, signal.SIGTERM)
+        deadline = time.time() + SERVE_TIMEOUT
+        while not ctx.join(timeout=1.0):
+            if time.time() > deadline:
+                fail(f"the {n}-rank service did not drain within "
+                     f"{SERVE_TIMEOUT} s of SIGTERM")
+    except mp.ProcessRaisedException as e:
+        fail(f"a rank of the {n}-rank service failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"a rank of the {n}-rank service exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    peaks = [json.loads((work / f"serve{n}_rank{r}.json").read_text())[
+        "peak_gib"] for r in range(n)]
+    print(f"serve_msa --dist on {n} rank(s): width "
+          f"{ra['alignment']['width']}, tree backend {rt['backend']}, queue "
+          f"{json.dumps(health['queue'])}, device peak per rank {peaks} GiB;"
+          f" drained on SIGTERM, {time.time() - t0:.1f} s wall, spawn "
+          "included")
+    return {"align": strip_volatile(ra), "tree": strip_volatile(rt)}
+
+
+def msa_service_phase(fam, work: Path, route: str = "cuda") -> None:
+    """Phase 19: the MSA service and its store (``repro_torch.serve``,
+    ``launch/serve_msa``) over HTTP, on the card."""
+    import torch
+    device = "cuda" if route == "cuda" else "cpu"
+    fam2 = simulate(N_FAMILY2)
+    serve_inprocess(fam, fam2, work, route)
+    serve_store_phase(fam2, work, device)
+    fam3 = simulate(N_FAMILY2, indel=DIST_INDEL)
+    torch.cuda.empty_cache()
+    one = serve_world(fam3, work, 1, device)
+    two = serve_world(fam3, work, DIST_RANKS, device)
+    if one != two:
+        fail("serve_msa --dist on 2 ranks differs from a world of one")
+    print("serve_msa --dist: /align and /tree on 2 ranks equal a world of "
+          "one's")
+
+
 # ---------------------------------------------------------------- LM serving
 
 SERVE_ARCH = "h2o-danube-3-4b"   # full width: 24 layers, 32/8 heads of 120
@@ -2263,6 +2830,8 @@ def main() -> int:
     fa_launches, fa, fa_err = lm_phase()
 
     dist_phase(fam, work)
+
+    msa_service_phase(fam, work)
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

@@ -97,8 +97,11 @@ class Alphabet:
         return lut[buf].reshape(len(seqs), width)
 
     def decode(self, codes) -> str:
-        table = self.chars + "-"
-        return "".join(table[int(c)] for c in np.asarray(codes))
+        """The characters of a row of codes (the gap code as '-'), through
+        one byte lookup table that codes index as a string's characters
+        are indexed (negative ones from its end)."""
+        table = np.frombuffer((self.chars + "-").encode("ascii"), np.uint8)
+        return table[np.asarray(codes)].tobytes().decode("ascii")
 
     @property
     def unknown_code(self) -> int:

@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,14 @@ def sync(device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def on_device(device):
+    """A context making ``device`` the thread's current card (a no-op on
+    the CPU). The kernels launch on the current stream of their tensors'
+    card, and the current card is per thread: a worker thread of a
+    service enters this before it launches anything."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

@@ -81,7 +81,8 @@ def world(device):
     try:
         yield
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():       # a fault may have left it already
+            dist.destroy_process_group()
 
 
 def make_local_mesh(shape=(1, 1), axes=("data", "model"), *,

@@ -289,9 +289,155 @@ def job_fail(mesh):
     return {}
 
 
+SERVE_THRESHOLD = 10     # families of >= this many go over the mesh
+
+
+def _serve_inputs():
+    """A family over the threshold, one under it, a second big family
+    and the search database, from numpy seeds."""
+    fam = _sim(14, 150, 11)
+    fam2 = _sim(12, 140, 12)
+    small = _mut_family(13, 5, 90)[1]
+    return fam, fam2, small, _search_db()
+
+
+def _serve_config(mesh, index, config=None, **kw):
+    """The mesh service's configuration (the port's unless ``config``)."""
+    if config is None:
+        from repro_torch.serve import ServiceConfig as config
+        kw["device"] = "cpu"
+    return config(max_wait_ms=1.0, dist_threshold=SERVE_THRESHOLD,
+                  search_index=index, mesh=mesh, **kw)
+
+
+def _strip(resp: dict) -> dict:
+    """A response without what varies from run to run."""
+    return {k: v for k, v in resp.items()
+            if k not in ("elapsed_ms", "trace_id", "cache")}
+
+
+def _serve_requests(svc, ml: bool = True) -> dict:
+    """rank 0's requests to a mesh service: /align over and under the
+    threshold, /tree tiled (twice: the second a cache hit) and ML with
+    bootstrap, /search, then a big /align and a /search at once from two
+    threads (both mesh jobs). Returns the responses, stripped."""
+    import threading
+    fam, fam2, small, (names, seqs, qn, qs) = _serve_inputs()
+    out = {"align": svc.align(fam.names, fam.seqs),
+           "align_small": svc.align([f"s{i}" for i in range(len(small))],
+                                    small)}
+    mid = out["align"]["alignment"]["msa_id"]
+    out["tree"] = svc.tree(msa_id=mid, backend="tiled")
+    out["tree_again"] = svc.tree(msa_id=mid, backend="tiled")
+    if ml:
+        out["tree_ml"] = svc.tree(msa_id=mid, refine="ml", model="jc69",
+                                  bootstrap=2)
+    out["search"] = svc.search(qn, qs)
+    both = {}
+    threads = [threading.Thread(target=lambda: both.update(
+        align2=svc.align(fam2.names, fam2.seqs))),
+        threading.Thread(target=lambda: both.update(
+            search2=svc.search(qn[:1], qs[:1], max_hits=3)))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(WORLD_TIMEOUT)
+    assert set(both) == {"align2", "search2"}, "concurrent mesh requests"
+    out.update(both)
+    return {k: _strip(v) for k, v in out.items()}
+
+
+def job_serve(mesh):
+    """The service over the mesh: rank 0 runs ``_serve_requests`` and
+    drains (which stops the followers); the other ranks follow. Rank 0
+    idles first past a short heartbeat, so no-op jobs come between the
+    real ones."""
+    from repro_torch.search import SearchIndex
+    from repro_torch.serve import MSAService, service
+    names, seqs, _, _ = _search_db()
+    index = SearchIndex.build(names, seqs, device="cpu")
+    service.HEARTBEAT_S = 0.1       # the followers see no-op jobs too
+    svc = MSAService(_serve_config(mesh, index))
+    if mesh.rank != 0:
+        try:
+            return {"followed": svc.follow()}
+        finally:
+            svc.drain()
+    try:
+        time.sleep(0.5)
+        out = _serve_requests(svc)
+        out["mesh_jobs"] = svc._mesh.n_jobs
+    finally:
+        svc.drain()
+    return out
+
+
+def _post(url: str, payload: dict):
+    """POST ``payload`` as JSON; returns (status, body, seconds)."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(url, json.dumps(payload).encode(),
+                                 {"Content-Type": "application/json"})
+    t0 = time.time()
+    try:
+        with urllib.request.urlopen(req, timeout=WORLD_TIMEOUT) as r:
+            status, body = r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        status, body = e.code, json.loads(e.read())
+    return status, body, time.time() - t0
+
+
+def job_serve_fault(mesh):
+    """The mesh service over HTTP with errors planted in its ``msa`` job:
+    the first call raises ``ValueError`` on every rank (an error of the
+    data), the third a ``RuntimeError`` on rank 1 only, half a second in,
+    while rank 0 waits for it in the job's collectives. Rank 0 posts a
+    big family four times (the error, the same family, a second one for
+    the fault, the second again) and then a small one."""
+    import threading
+    from repro_torch.serve import MSAService, serve_http
+    fam, fam2, small, _ = _serve_inputs()
+    svc = MSAService(_serve_config(mesh, None))
+    real, calls = svc._mesh.handlers["msa"], []
+
+    def planted(canon):
+        calls.append(len(canon))
+        if len(calls) == 1:
+            raise ValueError("planted: an error of the data")
+        if len(calls) == 3 and mesh.rank == 1:
+            time.sleep(0.5)
+            raise RuntimeError("planted: a fault on rank 1")
+        return real(canon)
+    svc._mesh.handlers["msa"] = planted
+    if mesh.rank != 0:
+        try:
+            svc.follow()
+        except RuntimeError as e:
+            return {"raised": str(e), "calls": len(calls)}
+        finally:
+            svc.drain()
+        return {"raised": None, "calls": len(calls)}
+    httpd = serve_http(svc, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}/align"
+    out = {}
+    try:
+        for key, f in (("data", fam), ("ok", fam), ("fault", fam2),
+                       ("after", fam2)):
+            out[key] = _post(url, {"names": f.names, "sequences": f.seqs})
+        out["small"] = _post(url, {"sequences": small})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        svc.drain()
+    out["calls"] = len(calls)
+    return out
+
+
 JOBS = {f.__name__[4:]: f for f in (job_msa, job_dcs, job_tiles, job_tree,
                                     job_boot, job_fleet, job_seed,
-                                    job_launchers, job_coll, job_fail)}
+                                    job_launchers, job_coll, job_fail,
+                                    job_serve, job_serve_fault)}
 
 
 # ------------------------------------------------------------- the worlds
@@ -309,7 +455,8 @@ def _child(rank, n, shape, jobs, tmp):
         out = {name: JOBS[name](mesh) for name in jobs}
         torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():       # a fault job leaves it itself
+            dist.destroy_process_group()
 
 
 def _spawn(tmp: Path, shape, jobs):
@@ -338,6 +485,11 @@ def world2(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("world2")
     return tmp, _spawn(tmp, (2, 1), ["msa", "tiles", "tree", "boot",
                                      "fleet", "seed", "coll", "launchers"])
+
+
+@pytest.fixture(scope="module")
+def serve_world2(tmp_path_factory):
+    return _spawn(tmp_path_factory.mktemp("serve2"), (2, 1), ["serve"])
 
 
 @pytest.fixture(scope="module")
@@ -618,3 +770,110 @@ def test_collectives_over_ranks(world2, world8, n):
     if n == 4:       # the other group of 4 saw the same inputs
         for r in range(4, 8):
             _assert_equal(world8[r]["coll"][4], res[r - 4])
+
+
+# -------------------------------------------------------------- service
+
+@pytest.fixture(scope="module")
+def serve_world1():
+    """The mesh service in a world of one, in this process."""
+    from repro_torch.launch import mesh as lm
+    from repro_torch.search import SearchIndex
+    from repro_torch.serve import MSAService
+    names, seqs, _, _ = _search_db()
+    index = SearchIndex.build(names, seqs, device="cpu")
+    with lm.world("cpu"):
+        svc = MSAService(_serve_config(lm.mesh_from_arg(None, device="cpu"),
+                                       index))
+        try:
+            out = _serve_requests(svc)
+            out["mesh_jobs"] = svc._mesh.n_jobs
+        finally:
+            svc.drain()
+    assert not dist.is_initialized()
+    return out
+
+
+def test_service_world_of_one_equals_reference_mesh(serve_world1):
+    """The port's service over a world of one against the reference's
+    over its 1x1 mesh, the same requests: ``/align`` over the threshold
+    takes ``path: "dist"`` with the same rows and ``msa_id``, under it the
+    coalesced path; ``/tree`` tiled at RF 0 (equal Newick, or an NJ tie
+    rooted apart); ``/search`` the same ``search_id`` and hits."""
+    from repro.launch.mesh import make_local_mesh as jmesh
+    from repro.search import SearchIndex as JIndex
+    from repro.serve import MSAService as JService
+    from repro.serve import ServiceConfig as JServiceConfig
+    from test_torch_msa_run import _splits
+    names, seqs, _, _ = _search_db()
+    ref = JService(_serve_config(jmesh((1, 1)), JIndex.build(names, seqs),
+                                 JServiceConfig))
+    try:
+        want = _serve_requests(ref, ml=False)
+    finally:
+        ref.drain()
+    got = serve_world1
+    fam = _serve_inputs()[0]
+    assert got["align"]["path"] == want["align"]["path"] == "dist"
+    assert got["align2"]["path"] == "dist"
+    assert got["align_small"]["path"] == "coalesced"
+    for k in ("align", "align_small", "align2"):
+        assert got[k]["alignment"] == want[k]["alignment"], k
+        assert got[k]["path"] == want[k]["path"]
+    for k in ("tree", "tree_again"):
+        assert got[k]["msa_id"] == want[k]["msa_id"]
+        assert got[k]["backend"] == want[k]["backend"]
+        assert got[k]["cached_tree"] == want[k]["cached_tree"]
+        if got[k]["newick"] != want[k]["newick"]:
+            assert _splits(got[k]["newick"], fam.names) == \
+                _splits(want[k]["newick"], fam.names)
+    for k in ("search", "search2"):
+        assert got[k] == want[k], k
+    assert got["search"]["stats"]["seed"] == "mesh"
+
+
+def test_service_over_two_ranks_equals_world_of_one(serve_world1,
+                                                    serve_world2):
+    """The same requests to the service over 2 ``gloo`` ranks: every
+    response equal to the world of one's (ML tree and bootstrap labels
+    included); two mesh requests at once from two handler threads on rank
+    0 both finish; rank 0's drain stops the follower, which ran every
+    mesh job rank 0 ran (the tree cache hit runs none)."""
+    rank0, rank1 = (dict(r["serve"]) for r in serve_world2)
+    jobs = rank0.pop("mesh_jobs")
+    assert rank1 == {"followed": jobs}
+    assert jobs == serve_world1["mesh_jobs"] == 6
+    want = {k: v for k, v in serve_world1.items() if k != "mesh_jobs"}
+    assert rank0.keys() == want.keys()
+    for k in want:
+        assert rank0[k] == want[k], k
+    assert rank0["tree"]["backend"] == "tiled-exact"
+    assert rank0["tree_again"]["cached_tree"] is True
+    assert rank0["tree_ml"]["refine"] == "ml"
+
+
+def test_service_fault_on_one_rank_stops_the_mesh(tmp_path):
+    """A fault on rank 1 only, while rank 0 waits in the job's
+    collectives, is a prompt 503 on rank 0, not a wait for the process
+    group's timeout: rank 1 leaves the group and re-raises, the mesh stops,
+    a later mesh request is a 503 at once and one under the threshold
+    still aligns. An error of the data on every rank before it is a 400,
+    and the mesh goes on."""
+    t0 = time.time()
+    rank0, rank1 = (r["serve_fault"] for r in
+                    _spawn(tmp_path, (2, 1), ["serve_fault"]))
+    assert time.time() - t0 < WORLD_TIMEOUT
+    status, body, _ = rank0["data"]
+    assert status == 400 and "an error of the data" in body["error"]
+    status, body, _ = rank0["ok"]
+    assert status == 200 and body["path"] == "dist"
+    status, body, secs = rank0["fault"]
+    assert status == 503 and "mesh is stopped" in body["error"]
+    assert secs < 30
+    status, body, secs = rank0["after"]
+    assert status == 503 and "mesh stopped by a fault" in body["error"]
+    assert secs < 5
+    status, body, _ = rank0["small"]
+    assert status == 200 and body["path"] == "coalesced"
+    assert rank0["calls"] == 3
+    assert rank1 == {"raised": "planted: a fault on rank 1", "calls": 3}
