@@ -27,7 +27,9 @@ Phases, in order; any failure exits non-zero:
      one, one of one row) on tensor cores and SIMD;
   5. hold the banded forward kernel and the fused banded kernel bit-exact
      against their plain versions at ragged small shapes (lengths 0 and
-     1, W = 1, 8, 17, 33, 42, 64, 128, 256, 500 and 1,024, a band covering
+     1, W = 1, 8, 17, 33, 42, 64, 128, 256, 500 and 1,024 on the warp
+     route, 1,025, 1,536, 2,048, 4,096, 8,192 and 16,384 on the wide
+     route, a band covering
      every column, broadcast targets, band slides above one column a row
      (lb >= 3 la, la = 1 with lb = m, lb = 1 with la = n), la = n in every
      pair, B not a multiple of the pairs a CTA, n * W past the first
@@ -160,6 +162,21 @@ Phases, in order; any failure exits non-zero:
      tiled`` equal on both worlds; each request's wall ms, the device
      peaks, kernel launches (counted by the service's worker threads, read
      after each request) and the queue's batches are printed;
+ 20. the adaptive band policy and the progressive baseline: (a) 4,096
+     pairs of partial 16S reads (substrings of 400-1,440 nt of phase 6's
+     leaves) against other full-length leaves through ``AlignEngine(
+     band_policy="adaptive").align_pairs`` at band 64 on both banded
+     routes (kernel 4; kernel 3 + the banded traceback): rows, fallbacks
+     and calls equal, kernel 4 launched once a bucket; beside the fixed W
+     = 64 policy on the same pairs (fewer fallbacks; its fallbacks go
+     through kernel 1); every bucket's call held exact against the plain
+     versions on 3 of its pairs; the widest call and a W = 16,384 call
+     timed beside their bounds and plain versions, with registers and
+     spill bytes; each run's wall seconds, device peak, buckets, calls,
+     fallbacks and launches; (b) ``progressive_msa`` on the card on the
+     Table 4 protein family (16 x 459) and on 128 of phase 6's sequences:
+     rows decode to their inputs; seconds and avg SP beside
+     ``center_star_msa`` on the same family;
  and print each kernel on its own path as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
@@ -736,19 +753,18 @@ def fused_plain(a, b, lens, sub, *, gap_open, gap_extend, band, gap_code=5):
 def check_banded_inputs(a, b, lens, sub, W, where: str):
     """Kernels 3 and 4 against their plain versions, and kernel 4 against
     kernel 3 + the banded traceback, on one input; returns the largest
-    score difference."""
+    score difference. Kernel 3 must equal the plain forward bit for bit,
+    so one plain traceback of that forward is both kernel 4's plain
+    version and the traceback of kernel 3's output."""
     from repro_torch.kernels.banded import ops, ref
     kw = dict(gap_open=3, gap_extend=1, band=W)
     k3 = ops.banded_forward(a, b, lens, sub, **kw)
-    err = same_banded(k3, ref.banded_forward(
-        a, lens[:, 0], b, lens[:, 1], sub, 3, 1, band=W), where)
-    plain = fused_plain(a, b, lens, sub, **kw)
-    a_row, b_row, k, ok = ref.banded_traceback(a, b, k3, 5, band=W)
+    fwd = ref.banded_forward(a, lens[:, 0], b, lens[:, 1], sub, 3, 1,
+                             band=W)
+    err = same_banded(k3, fwd, where)
+    plain = (fwd.score, *ref.banded_traceback(a, b, fwd, 5, band=W))
     k4 = ops.banded_pairs_fused(a, b, lens, sub, **kw)
-    err = max(err, same_fused(k4, plain, where))
-    same_fused(k4, (k3.score, a_row, b_row, k, ok), where,
-               "banded_fused vs banded_forward + traceback:")
-    return err
+    return max(err, same_fused(k4, plain, where))
 
 
 def check_banded(B, n, m, W, *, seed, broadcast=False, ragged=False,
@@ -767,15 +783,57 @@ def check_banded(B, n, m, W, *, seed, broadcast=False, ragged=False,
     return err
 
 
-def banded_bound(B, n, m, W, broadcast, fused):
+def wide_banded_checks():
+    """Kernels 3 and 4 past W = 1,024 (the wide route, a pair a CTA): W
+    not a power of two, up to the limit 16,384; ragged lengths, a broadcast
+    target, slides above one column a row with la = 1 against lb = m, and
+    bands covering every column. The plain version runs a host loop of
+    rows and steps, so B and n stay small at the widest W."""
+    return (check_banded(5, 60, 900, 1025, seed=30, lens="slides"),
+            check_banded(6, 300, 400, 1536, seed=31, ragged=True),
+            check_banded(7, 200, 1500, 2048, seed=32, broadcast=True,
+                         lens="slides"),
+            check_banded(9, 1500, 1500, 2048, seed=33),
+            check_banded(6, 400, 3000, 4096, seed=34, ragged=True),
+            check_banded(4, 120, 6000, 8192, seed=35, lens="slides"),
+            check_banded(5, 300, 2000, 8192, seed=36, broadcast=True,
+                         ragged=True),
+            check_banded(3, 150, 8000, 16384, seed=37, lens="slides"),
+            check_banded(3, 500, 600, 16384, seed=38, ragged=True))
+
+
+def band_cells(lens, W: int) -> int:
+    """Band cells inside the matrix that pairs of lengths ``lens`` (B, 2)
+    need: for each live row i in 1..la, the columns of the row's band
+    [lo_i, lo_i + W) that lie in 0..lb (``ref.band_lo``). Cells of the
+    band outside the matrix change no score and no row."""
+    lens = np.asarray(lens.cpu() if hasattr(lens, "cpu") else lens,
+                      dtype=np.int64)
+    la, lb = lens[:, 0], lens[:, 1]
+    live = la > 0
+    la, lb = la[live], lb[live]
+    total = 0
+    for c in range(0, len(la), 256):        # rows of 256 pairs at a time
+        a, b = la[c:c + 256], lb[c:c + 256]
+        pair = np.repeat(np.arange(len(a)), a)
+        i = np.arange(len(pair)) - np.repeat(np.cumsum(a) - a, a) + 1
+        lo = i * b[pair] // a[pair] - W // 2
+        hi = np.minimum(lo + W - 1, b[pair])
+        total += int(np.maximum(hi - np.maximum(lo, 0) + 1, 0).sum())
+    return total
+
+
+def banded_bound(lens, n, m, W, broadcast, fused):
     """Least time for the banded kernels' work on the H100: the inputs
-    read once and the outputs written once (kernel 3: the direction band;
-    kernel 4: two aligned rows) against BANDED_OPS_PER_CELL f32 operations
-    per band cell."""
+    read once and the outputs written once (kernel 3: its (B, n, W)
+    direction band; kernel 4: two aligned rows) against
+    BANDED_OPS_PER_CELL f32 operations per band cell inside the matrix
+    (``band_cells``)."""
+    B = len(lens)
     inputs = B * n + (m if broadcast else B * m) + B * 8
     outputs = B * 32 + (2 * B * (n + m) if fused else B * n * W)
     t_bytes = (inputs + outputs) / HBM_BYTES_PER_S * 1e3
-    t_ops = B * n * W * BANDED_OPS_PER_CELL / F32_OPS_PER_S * 1e3
+    t_ops = band_cells(lens, W) * BANDED_OPS_PER_CELL / F32_OPS_PER_S * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
 
@@ -798,7 +856,8 @@ def time_banded(inputs, *, fused):
         err = same_fused(k, p, where)
         plan = ops.fused_plan(B, n, m, kw["band"], ops.resident_ctas(
             a.device, kw["band"], sub.shape[0]))
-        extra = dict(placement="workspace", pairs_per_cta=ops.PAIRS_PER_CTA,
+        extra = dict(placement="workspace",
+                     pairs_per_cta=ops.pairs_per_cta(kw["band"]),
                      grid=plan.grid, workspace_bytes=plan.workspace_bytes,
                      **ops.fused_kernel_attrs(kw["band"], sub.shape[0]))
     else:
@@ -811,7 +870,7 @@ def time_banded(inputs, *, fused):
     name = "banded_fused" if fused else "banded_forward"
     print(f"{name} exact vs plain at the {where}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                **banded_bound(B, n, m, kw["band"], broadcast, fused),
+                **banded_bound(lens, n, m, kw["band"], broadcast, fused),
                 **extra), err
 
 
@@ -2438,6 +2497,252 @@ def msa_service_phase(fam, work: Path, route: str = "cuda") -> None:
           "one's")
 
 
+# ------------------------------------------------------- adaptive band policy
+
+N_ADAPT = 4096          # phase 20's pairs: partial reads against full targets
+ADAPT_BAND = 64
+ADAPT_READ = (400, 1440)   # query lengths (partial 16S reads)
+ADAPT_SAMPLE = 3        # pairs of each bucket held against the plain versions
+N_PROG = 128            # progressive_msa on Phi_RNA sequences
+# W = 16,384 timed where the planner gives it: short reads (90-110 nt)
+# against 8,192-nt targets at band 128 (|la - lb| + 128 > 8,192)
+WIDE_READS = dict(pairs=1024, read=(90, 110), target=8192, band=128)
+
+
+def adaptive_pairs(fam, n: int, seed: int):
+    """Phase 20's traffic: each query a substring of 400-1,440 nt of one
+    leaf (a partial 16S read), its target another full-length leaf."""
+    from repro_torch.core import alphabet as ab
+    rng = np.random.default_rng(seed)
+    N = len(fam.seqs)
+    qi = rng.integers(0, N, n)
+    ti = (qi + rng.integers(1, N, n)) % N
+    queries = []
+    for i in qi:
+        s = fam.seqs[i]
+        L = int(rng.integers(ADAPT_READ[0], min(ADAPT_READ[1], len(s)) + 1))
+        start = int(rng.integers(0, len(s) - L + 1))
+        queries.append(s[start:start + L])
+    Q, ql = ab.encode_batch(queries, ab.DNA)
+    T, tl = ab.encode_batch([fam.seqs[i] for i in ti], ab.DNA)
+    return Q, ql, T, tl
+
+
+def wide_reads(sub, seed: int):
+    """The W = 16,384 call the planner makes for WIDE_READS: each read a
+    mutated substring of its 8,192-nt target; returns the call's inputs
+    (sliced to its bucket's widths) and its [B, wq, wt, W]."""
+    import torch
+    from repro_torch.align import bucketing
+    rng = np.random.default_rng(seed)
+    B, (lo, hi), m = (WIDE_READS["pairs"], WIDE_READS["read"],
+                      WIDE_READS["target"])
+    T = rng.integers(0, 4, (B, m)).astype(np.int8)
+    ql = rng.integers(lo, hi + 1, B)
+    Q = np.full((B, hi), 5, np.int8)
+    for r, L in enumerate(ql):
+        start = int(rng.integers(0, m - L + 1))
+        read = T[r, start:start + L].copy()
+        noise = rng.random(L) < 0.05
+        read[noise] = rng.integers(0, 4, int(noise.sum()))
+        Q[r, :L] = read
+    tl = np.full(B, m)
+    plan = bucketing.band_bucket_plan(ql, tl, hi, m, band=WIDE_READS["band"])
+    if [W for _, _, W, _ in plan] != [16384]:
+        got = [(wq, wt, W, len(ix)) for wq, wt, W, ix in plan]
+        fail(f"WIDE_READS planned as {got}, not one W = 16,384 bucket")
+    wq, wt, W, _ = plan[0]
+    dev = sub.device
+    lens = torch.as_tensor(np.stack([ql, tl], 1), dtype=torch.int32,
+                           device=dev)
+    call = (torch.from_numpy(Q[:, :wq].copy()).to(dev),
+            torch.from_numpy(T[:, :wt].copy()).to(dev), lens, sub,
+            dict(gap_open=3, gap_extend=1, band=W))
+    return call, [B, wq, wt, W]
+
+
+def capped_grid_check(call) -> None:
+    """Kernel 4 with ``ops.WORKSPACE_BUDGET`` cut to four pair slots: its
+    grid shrinks to four CTAs (each serving B / 4 pairs) and the results
+    must equal the uncapped grid's bit for bit."""
+    import torch
+    from repro_torch.kernels.banded import ops
+    a, b, lens, sub, kw = call
+    B, n = a.shape
+    full = ops.banded_pairs_fused(a, b, lens, sub, **kw)
+    budget = ops.WORKSPACE_BUDGET
+    slot = ops.fused_plan(B, n, b.shape[1], kw["band"], 1).slot_bytes
+    ops.WORKSPACE_BUDGET = 4 * slot
+    try:
+        capped = ops.banded_pairs_fused(a, b, lens, sub, **kw)
+    finally:
+        ops.WORKSPACE_BUDGET = budget
+    for x, y in zip(full, capped):
+        if not torch.equal(x, y):
+            fail(f"kernel 4 on a grid capped by its workspace budget (4 "
+                 f"slots of {slot} bytes) differs from the full grid at "
+                 f"B={B} n={n} W={kw['band']}")
+    print(f"banded_fused on a grid capped at 4 slots of {slot} bytes "
+          f"equals the full grid (B={B} n={n} W={kw['band']})")
+
+
+def adaptive_run(eng, args, label: str) -> dict:
+    """One ``align_pairs`` call with every launch count set to 0 just
+    before it and read just after; its wall seconds and device peak."""
+    import torch
+    from repro_torch.kernels.banded import ops as bd_ops
+    from repro_torch.kernels.sw import ops as sw_ops
+    torch.cuda.synchronize()
+    reset_peak()
+    bd_ops.forward_launches = bd_ops.fused_launches = sw_ops.launches = 0
+    t0 = time.perf_counter()
+    out = eng.align_pairs(*args)
+    torch.cuda.synchronize()
+    stats = dict(seconds=round(time.perf_counter() - t0, 3),
+                 peak_gib=round(device_peak() / 2 ** 30, 3),
+                 n_calls=out.n_calls, n_fallback=out.n_fallback,
+                 launches={"banded_forward": bd_ops.forward_launches,
+                           "banded_fused": bd_ops.fused_launches,
+                           "gotoh_forward": sw_ops.launches})
+    print(f"adaptive phase, {label}: {json.dumps(stats)}")
+    return out, stats
+
+
+def adaptive_phase(fam, device: str = "cuda") -> dict:
+    """Phase 20(a): ``AlignEngine(band_policy="adaptive").align_pairs`` on
+    the card on both banded routes, beside the fixed W = 64 policy; every
+    bucket's call held on a sample of its pairs, the widest timed
+    (``device="cpu"`` rehearses it on the plain versions: no launch
+    counts, no timings)."""
+    import torch
+    from repro_torch.align import bucketing
+    from repro_torch.align.engine import AlignEngine
+    from repro_torch.core import alphabet as ab
+    from repro_torch.kernels.banded import ops
+    Q, ql, T, tl = adaptive_pairs(fam, N_ADAPT, seed=20)
+    plan = bucketing.band_bucket_plan(ql, tl, Q.shape[1], T.shape[1],
+                                      band=ADAPT_BAND)
+    print(f"adaptive phase: {N_ADAPT} pairs, queries {ql.min()}..{ql.max()} "
+          f"nt against targets {tl.min()}..{tl.max()} nt, band "
+          f"{ADAPT_BAND}: {len(plan)} buckets (wq, wt, W, pairs) "
+          f"{[(wq, wt, W, len(ix)) for wq, wt, W, ix in plan]}")
+    dev = torch.device(device)
+    sub = torch.as_tensor(ab.dna_matrix(), dtype=torch.float32, device=dev)
+    args = tuple(torch.from_numpy(x).to(dev) for x in (Q, ql, T, tl))
+    kw = dict(gap_open=3, gap_extend=1, gap_code=ab.DNA.gap_code,
+              band=ADAPT_BAND)
+    fused, fs = adaptive_run(AlignEngine(sub, backend="banded-pallas",
+                                         band_policy="adaptive", **kw),
+                             args, "adaptive banded-pallas")
+    banded, bs = adaptive_run(AlignEngine(sub, backend="banded",
+                                          band_policy="adaptive", **kw),
+                              args, "adaptive banded")
+    fixed, xs = adaptive_run(AlignEngine(sub, backend="banded-pallas", **kw),
+                             args, f"fixed W = {ADAPT_BAND} banded-pallas")
+    # kernel 4 once a bucket; kernel 3 once a bucket or more (its calls
+    # split by the direction budget)
+    if device == "cuda" and (fs["launches"]["banded_fused"] != len(plan) or
+                             bs["launches"]["banded_forward"] < len(plan)):
+        fail(f"adaptive launches {fs['launches']} / {bs['launches']} do not "
+             f"cover the plan's {len(plan)} buckets")
+    for name in ("score", "a_row", "b_row", "aln_len"):
+        if not torch.equal(getattr(fused, name), getattr(banded, name)):
+            fail(f"adaptive banded-pallas and banded differ in {name}")
+    if (fused.n_fallback, fused.n_calls) != (banded.n_fallback,
+                                             banded.n_calls):
+        fail("adaptive routes differ in fallbacks or calls")
+    if not fused.n_fallback < fixed.n_fallback:
+        fail(f"adaptive fallbacks {fused.n_fallback} not below the fixed "
+             f"policy's {fixed.n_fallback}")
+    differ = int((fused.a_row != fixed.a_row).any(1).sum())
+    print(f"adaptive phase: both routes' rows equal; fallbacks "
+          f"{fused.n_fallback} adaptive against {fixed.n_fallback} fixed; "
+          f"{differ} of {N_ADAPT} aligned query rows differ from the fixed "
+          "policy's")
+    # every bucket's call, on a sample of its pairs, against the plain
+    # versions (kernel 4 also against kernel 3 + the banded traceback)
+    Qd, qld, Td, tld = args
+    err = 0.0
+    for wq, wt, W, idx in plan:
+        s = torch.as_tensor(np.unique(np.r_[idx[:ADAPT_SAMPLE - 1],
+                                            idx[-1:]]), device=dev)
+        lens = torch.stack([qld[s], tld[s]], 1).to(torch.int32)
+        err = max(err, check_banded_inputs(
+            Qd[s, :wq].contiguous(), Td[s, :wt].contiguous(), lens, sub, W,
+            f"bucket wq={wq} wt={wt} W={W} ({len(s)} of {len(idx)} pairs)"))
+    print(f"adaptive phase: every bucket's call exact vs plain on "
+          f"{ADAPT_SAMPLE} of its pairs")
+    if device == "cpu":
+        return dict(adaptive_banded_pallas=fs, adaptive_banded=bs, fixed=xs,
+                    buckets=len(plan), timed={}, max_abs_err=err)
+    # the widest call (most pairs among the widest W), timed, and W = 16,384
+    wq, wt, W, idx = max(plan, key=lambda b: (b[2], len(b[3])))
+    ix = torch.as_tensor(idx, device=dev)
+    lens = torch.stack([qld[ix], tld[ix]], 1).to(torch.int32)
+    call = (Qd[ix, :wq].contiguous(), Td[ix, :wt].contiguous(), lens, sub,
+            dict(gap_open=3, gap_extend=1, band=W))
+    timed = {}
+    for name, fz in (("banded_fused", True), ("banded_forward", False)):
+        timing, e = time_banded(call, fused=fz)
+        err = max(err, e)
+        attrs = (ops.fused_kernel_attrs if fz else ops.forward_kernel_attrs)(
+            W, sub.shape[0])
+        timed[name] = {"shape": [len(idx), wq, wt, W], **timing, **attrs}
+    wide, shape = wide_reads(sub, seed=39)
+    for name, fz in (("banded_fused", True), ("banded_forward", False)):
+        timing, e = time_banded(wide, fused=fz)
+        err = max(err, e)
+        attrs = (ops.fused_kernel_attrs if fz else ops.forward_kernel_attrs)(
+            shape[3], sub.shape[0])
+        timed[name + "_16384"] = {"shape": shape, **timing, **attrs}
+    capped_grid_check(wide)
+    for name, row in timed.items():
+        print(f"adaptive phase, {name}: {json.dumps(row)}")
+    return dict(adaptive_banded_pallas=fs, adaptive_banded=bs, fixed=xs,
+                buckets=len(plan), timed=timed, max_abs_err=err)
+
+
+def progressive_phase(fam, device: str = "cuda") -> None:
+    """Phase 20(b): ``progressive_msa`` on the card on the Table 4 protein
+    family and on N_PROG Phi_RNA sequences: rows decode to their inputs;
+    seconds and avg SP beside ``center_star_msa`` on the same family."""
+    import torch
+    from repro_torch.core.msa import MSAConfig, center_star_msa
+    from repro_torch.core.progressive import progressive_msa
+    from repro_torch.core.sp_score import avg_sp
+    from repro_torch.data import SimConfig, simulate_family
+    prot = simulate_family(SimConfig(n_leaves=16, root_len=459,
+                                     alphabet="protein", branch_sub=0.05,
+                                     branch_indel=0.002, seed=3)).seqs
+    cases = (
+        ("protein 16 x 459 (Table 4)", prot,
+         MSAConfig(method="plain", alphabet="protein", gap_open=8),
+         MSAConfig(method="sw", alphabet="protein", gap_open=11,
+                   gap_extend=1)),
+        (f"Phi_RNA {N_PROG} x ~1,440", fam.seqs[:N_PROG],
+         MSAConfig(method="plain"), MSAConfig(method="plain")))
+    for label, seqs, cfg, cs_cfg in cases:
+        alpha = cfg.alpha()
+        out = {}
+        for name, fn, c in (("progressive", progressive_msa, cfg),
+                            ("center_star", center_star_msa, cs_cfg)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(seqs, c, device=device)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            for s, row in zip(seqs, res.msa):
+                if alpha.decode(row).replace("-", "") != s:
+                    fail(f"{name} on {label}: a row does not decode to its "
+                         "input")
+            sp = float(avg_sp(torch.as_tensor(res.msa, device=device),
+                              gap_code=alpha.gap_code,
+                              n_chars=alpha.n_chars))
+            out[name] = dict(seconds=round(sec, 3), width=res.width,
+                             avg_sp=round(sp, 3))
+        print(f"progressive phase, {label}: {json.dumps(out)}")
+
+
 # ---------------------------------------------------------------- LM serving
 
 SERVE_ARCH = "h2o-danube-3-4b"   # full width: 24 layers, 32/8 heads of 120
@@ -2716,6 +3021,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
+    t_start = time.time()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.data import write_fasta
@@ -2760,7 +3066,8 @@ def main() -> int:
                               lens="slides"),
                  # n + m = 241,000 codes (the staged windows take the same
                  # shared memory at any length), band slides of 148-213
-                 check_banded(4, 1000, 240000, 64, seed=24, lens="full"))
+                 check_banded(4, 1000, 240000, 64, seed=24, lens="full"),
+                 *wide_banded_checks())
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -2833,6 +3140,14 @@ def main() -> int:
 
     msa_service_phase(fam, work)
 
+    t20 = time.time()
+    adapt = adaptive_phase(fam)
+    progressive_phase(fam)
+    for name in ("banded_forward", "banded_fused"):
+        err[name] = max(err[name], adapt["max_abs_err"])
+    print(f"adaptive band policy and progressive baseline (phase 20): "
+          f"{time.time() - t20:.1f} s")
+
     kernels = [
         dict(name="gotoh_forward", route="cuda",
              source="src/repro_torch/csrc/sw_forward.cu",
@@ -2862,6 +3177,8 @@ def main() -> int:
              replaces="src/repro/kernels/flash_attention/flash_kernel.py:87",
              launches=fa_launches, max_abs_err=fa_err, **fa),
     ]
+    print(f"chip_smoke: every phase in {time.time() - t_start:.1f} s, "
+          "the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

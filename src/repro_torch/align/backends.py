@@ -32,8 +32,9 @@ from ..kernels.sw import ops as sw_ops
 from . import banded as banded_mod
 
 BANDED = ("banded", "banded-pallas")
-# the most full-DP direction bytes one forward call may write (8 GiB: the
-# 16S main path's 3,735 x 1,494 x 1,494 fallback batch is one call)
+# the most direction bytes one forward call may write, full DP or banded
+# (8 GiB: the 16S main path's 3,735 x 1,494 x 1,494 fallback batch is one
+# call)
 DIRS_BUDGET = 8 << 30
 # reference registry names; in the port each one is the device's route
 ALIASES = ("auto", "jnp", "pallas")
@@ -47,32 +48,39 @@ class BatchAlignment(NamedTuple):
     ok: torch.Tensor         # (B,) bool; False = needs full-DP fallback
 
 
+def _in_chunks(align, per_pair: int, Q, qlens, T, tlens) -> BatchAlignment:
+    """``align(Q, qlens, T, tlens)`` over chunks of pairs whose direction
+    bytes (``per_pair`` each) stay within ``DIRS_BUDGET``, concatenated;
+    one call when the batch fits. Each pair's result is its own, so the
+    results are the same at any chunk size."""
+    B = Q.shape[0]
+    step = max(DIRS_BUDGET // max(per_pair, 1), 1)
+    if B <= step:
+        return align(Q, qlens, T, tlens)
+    parts = [align(Q[c:c + step], qlens[c:c + step], T[c:c + step],
+                   tlens[c:c + step]) for c in range(0, B, step)]
+    return BatchAlignment(*(torch.cat(f) for f in zip(*parts)))
+
+
 def sw_align_pairs(Q, qlens, T, tlens, sub, *, gap_open, gap_extend,
                    local=False, gap_code=5) -> BatchAlignment:
     """Row i of ``Q`` against row i of ``T`` (per-pair targets).
 
-    The full DP writes (n+1)·(m+1) direction bytes per pair; a batch whose
-    direction tensor would pass ``DIRS_BUDGET`` runs in chunks of pairs,
-    one forward and one traceback each, with the same results.
+    The full DP writes (n+1)·(m+1) direction bytes per pair; a batch past
+    ``DIRS_BUDGET`` runs in chunks of pairs (``_in_chunks``), one forward
+    and one traceback each.
     """
-    B, n = Q.shape
-    per_pair = (n + 1) * (T.shape[1] + 1)
-    step = max(DIRS_BUDGET // per_pair, 1)
-    if B > step:
-        parts = [sw_align_pairs(Q[c:c + step], qlens[c:c + step],
-                                T[c:c + step], tlens[c:c + step], sub,
-                                gap_open=gap_open, gap_extend=gap_extend,
-                                local=local, gap_code=gap_code)
-                 for c in range(0, B, step)]
-        return BatchAlignment(*(torch.cat(f) for f in zip(*parts)))
-    lens2 = torch.stack([qlens.to(torch.int32), tlens.to(torch.int32)],
-                        dim=1)
-    fwd = sw_ops.gotoh_forward(Q, T, lens2, sub, gap_open=gap_open,
-                               gap_extend=gap_extend, local=local)
-    a_row, b_row, k = pairwise.traceback(Q, T, fwd, gap_code)
-    return BatchAlignment(fwd.score, a_row, b_row, k,
-                          torch.ones(Q.shape[0], dtype=torch.bool,
-                                     device=Q.device))
+    def align(Q, qlens, T, tlens):
+        lens2 = torch.stack([qlens.to(torch.int32), tlens.to(torch.int32)],
+                            dim=1)
+        fwd = sw_ops.gotoh_forward(Q, T, lens2, sub, gap_open=gap_open,
+                                   gap_extend=gap_extend, local=local)
+        a_row, b_row, k = pairwise.traceback(Q, T, fwd, gap_code)
+        return BatchAlignment(fwd.score, a_row, b_row, k,
+                              torch.ones(Q.shape[0], dtype=torch.bool,
+                                         device=Q.device))
+    return _in_chunks(align, (Q.shape[1] + 1) * (T.shape[1] + 1), Q, qlens,
+                      T, tlens)
 
 
 def sw_align_batch(Q, lens, b, lb, sub, *, gap_open, gap_extend,
@@ -89,14 +97,20 @@ def sw_align_batch(Q, lens, b, lb, sub, *, gap_open, gap_extend,
 
 def banded_align_pairs(Q, qlens, T, tlens, sub, *, gap_open, gap_extend,
                        band=64, gap_code=5) -> BatchAlignment:
-    """Banded forward kernel + the banded traceback, per-pair targets."""
-    lens2 = torch.stack([qlens.to(torch.int32), tlens.to(torch.int32)],
-                        dim=1)
-    fwd = banded_ops.banded_forward(Q, T, lens2, sub, gap_open=gap_open,
-                                    gap_extend=gap_extend, band=band)
-    a_row, b_row, k, ok = banded_mod.banded_traceback(Q, T, fwd, gap_code,
-                                                      band=band)
-    return BatchAlignment(fwd.score, a_row, b_row, k, ok)
+    """Banded forward kernel + the banded traceback, per-pair targets.
+
+    The forward writes n·band direction bytes per pair; a batch past
+    ``DIRS_BUDGET`` runs in chunks of pairs (``_in_chunks``).
+    """
+    def align(Q, qlens, T, tlens):
+        lens2 = torch.stack([qlens.to(torch.int32), tlens.to(torch.int32)],
+                            dim=1)
+        fwd = banded_ops.banded_forward(Q, T, lens2, sub, gap_open=gap_open,
+                                        gap_extend=gap_extend, band=band)
+        a_row, b_row, k, ok = banded_mod.banded_traceback(Q, T, fwd,
+                                                          gap_code, band=band)
+        return BatchAlignment(fwd.score, a_row, b_row, k, ok)
+    return _in_chunks(align, Q.shape[1] * band, Q, qlens, T, tlens)
 
 
 def banded_align_batch(Q, lens, b, lb, sub, *, gap_open, gap_extend,

@@ -5,7 +5,10 @@ onto the full-DP and banded routes, and a local engine or a local
 override on a banded backend takes the full DP, since a diagonal band
 cannot host an anywhere-start local path), length-bucketed batching
 (``bucketing.bucket_plan``: each bucket runs at its own power-of-two
-width instead of the global Lmax) and the per-pair full-DP fallback
+width instead of the global Lmax), the band policy of the pairs path
+(``fixed``: the engine's band; ``adaptive``: a band per bucket wide
+enough for its pairs' length skew, ``bucketing.band_bucket_plan``) and
+the per-pair full-DP fallback
 shared by the banded backends (band overflow) and the k-mer chaining
 path (chain failure). Bucket merges and fallback merges stay on the
 device; only the (B,) ok flags cross to the host.
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from . import backends, bucketing
+from ..kernels.banded import ops as banded_ops
 from ..obs import metrics as _obs
 
 _M_CALLS = _obs.counter(
@@ -91,12 +95,16 @@ class AlignEngine:
     gap_code: int = 5
     backend: str = "auto"
     band: int = 64
+    band_policy: str = "fixed"   # "fixed" | "adaptive" (pairs path only)
     local: bool = False
     bucket: bool = True
     min_bucket: int = 32
 
     def __post_init__(self):
         backends.resolve_backend(self.backend, self.sub.device)
+        if self.band_policy not in ("fixed", "adaptive"):
+            raise ValueError(f"unknown band_policy {self.band_policy!r}; "
+                             "expected 'fixed' or 'adaptive'")
 
     @property
     def device(self) -> torch.device:
@@ -145,27 +153,30 @@ class AlignEngine:
                 gap_code=self.gap_code)
         return fn
 
-    def pairs_fn(self, *, local: Optional[bool] = None):
+    def pairs_fn(self, *, local: Optional[bool] = None,
+                 band: Optional[int] = None):
         """(Q, qlens, T, tlens) -> BatchAlignment with per-pair targets.
 
         ``banded`` runs the banded forward kernel + the banded traceback,
         ``banded-pallas`` the fused kernel; ``local`` overrides as in
-        ``batch_fn``.
+        ``batch_fn``; ``band`` overrides the engine's band for this
+        primitive (the adaptive policy takes one per bucket).
         """
         loc = self.local if local is None else local
         be = self.backend if self.backend in backends.BANDED and not loc \
             else "full"
+        W = self.band if band is None else int(band)
 
         def fn(Q, qlens, T, tlens):
             if be == "banded":
                 return backends.banded_align_pairs(
                     Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
-                    gap_extend=self.gap_extend, band=self.band,
+                    gap_extend=self.gap_extend, band=W,
                     gap_code=self.gap_code)
             if be == "banded-pallas":
                 return backends.banded_fused_align_pairs(
                     Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
-                    gap_extend=self.gap_extend, band=self.band,
+                    gap_extend=self.gap_extend, band=W,
                     gap_code=self.gap_code)
             return backends.sw_align_pairs(
                 Q, qlens, T, tlens, self.sub, gap_open=self.gap_open,
@@ -261,7 +272,9 @@ class AlignEngine:
 
         Q: (B, Lq) int8, T: (B, Lt) int8, qlens/tlens: (B,). Pairs are
         grouped into pow2 (q_width, t_width) buckets
-        (``bucketing.pair_bucket_plan``); output rows are (B, Lq + Lt) with
+        (``bucketing.pair_bucket_plan``; under ``band_policy="adaptive"``
+        on a banded backend, (q_width, t_width, W) buckets of
+        ``bucketing.band_bucket_plan``); output rows are (B, Lq + Lt) with
         trailing (gap, gap) dead padding. ``n_calls`` counts backend
         invocations.
         """
@@ -278,11 +291,9 @@ class AlignEngine:
             r = torch.zeros((0, P), dtype=torch.int8, device=dev)
             return PairsResult(z, r, r, torch.zeros((0,), dtype=torch.int32,
                                                     device=dev), 0, 0)
-        fn = self.pairs_fn()
-
         if not self.bucket:
             _record_dispatch("pairs", self.route, 1, B, None, None)
-            out = fn(Q, qlens, T, tlens)
+            out = self.pairs_fn()(Q, qlens, T, tlens)
             return self._apply_pairs_fallback(out, Q, qlens, T, tlens, P,
                                               n_calls=1)
 
@@ -290,21 +301,37 @@ class AlignEngine:
         tlens_np = tlens.cpu().numpy()
         real_cells = int((qlens_np.astype(np.int64)
                           * tlens_np.astype(np.int64)).sum())
-        plan = bucketing.pair_bucket_plan(qlens_np, tlens_np, Lq, Lt,
-                                          min_bucket=self.min_bucket)
+        if self.band_policy == "adaptive" and self._is_banded:
+            # (wq, wt, W) buckets: each at a band wide enough for its
+            # pairs' skew
+            plan = bucketing.band_bucket_plan(qlens_np, tlens_np, Lq, Lt,
+                                              band=self.band,
+                                              min_bucket=self.min_bucket)
+            widest = max(W for _, _, W, _ in plan)
+            if widest > banded_ops.MAX_BAND:
+                # checked before any launch (the reference's kernels take
+                # any W)
+                raise ValueError(
+                    f"adaptive band {widest} past the banded kernels' limit "
+                    f"{banded_ops.MAX_BAND} (queries of {Lq} against targets "
+                    f"of {Lt} columns at band {self.band})")
+        else:
+            plan = [(wq, wt, self.band, idx) for wq, wt, idx in
+                    bucketing.pair_bucket_plan(qlens_np, tlens_np, Lq, Lt,
+                                               min_bucket=self.min_bucket)]
         _record_dispatch("pairs", self.route, len(plan), B, real_cells,
-                         sum(wq * wt * len(idx) for wq, wt, idx in plan))
+                         sum(wq * wt * len(idx) for wq, wt, _, idx in plan))
         if len(plan) == 1:
-            wq, wt, _ = plan[0]
-            out = fn(Q[:, :wq], qlens, T[:, :wt], tlens)
+            wq, wt, W, _ = plan[0]
+            out = self.pairs_fn(band=W)(Q[:, :wq], qlens, T[:, :wt], tlens)
             return self._apply_pairs_fallback(out, Q, qlens, T, tlens, P,
                                               n_calls=1)
 
         merged = self._empty_rows(B, P)
-        for wq, wt, idx in plan:
+        for wq, wt, W, idx in plan:
             ix = torch.as_tensor(idx, device=dev)
-            self._merge(merged, ix, fn(Q[ix, :wq], qlens[ix], T[ix, :wt],
-                                       tlens[ix]), P)
+            self._merge(merged, ix, self.pairs_fn(band=W)(
+                Q[ix, :wq], qlens[ix], T[ix, :wt], tlens[ix]), P)
         return self._apply_pairs_fallback(backends.BatchAlignment(*merged),
                                           Q, qlens, T, tlens, P,
                                           n_calls=len(plan))

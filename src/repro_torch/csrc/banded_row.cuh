@@ -38,6 +38,18 @@
 //     (A_CHUNK rows of a, b_window(W) columns of b), so a CTA's shared
 //     memory is the same few KB for any length; the S x S table once per
 //     CTA.
+//
+// Bands wider than MAX_W (1,024) take a second route, band_forward_wide: a
+// pair a CTA of WIDE_THREADS threads, thread t holding the K = wide_cells(W)
+// cells t*K .. t*K+K-1 (a blocked layout, as a lane does above). The
+// previous row's M, Ix and Iy live in shared memory (three rows of 512 K
+// floats with a pad float every 32, so blocked reads hit distinct banks:
+// 198 KB at W = 16,384), read at c+s-1 and c+s for any slide s; the row
+// being computed stays in registers until every thread has read the old
+// one. A row costs two barriers: the first after the reads (the Iy prefix's
+// warp totals are then in shared memory), the second after the new row is
+// written (the row best's warp maxima and the left neighbour of each warp's
+// first cell are then in shared memory).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -50,7 +62,10 @@ namespace banded {
 constexpr float NEGV = -1.0e7f;
 constexpr int M_ST = 0, IX_ST = 1, IY_ST = 2, FRESH = 3;
 constexpr int MAX_S = 32;
-constexpr int MAX_W = 1024;
+constexpr int MAX_W = 1024;             // the warp route's widest band
+constexpr int MAX_WIDE_W = 16384;       // the CTA route's widest band
+constexpr int WIDE_THREADS = 512;       // threads of a CTA-route pair
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
 constexpr int PAIRS = 8;                // pairs (warps) a CTA
 constexpr int A_CHUNK = 256;            // rows of a staged at a time
 constexpr int B_SLACK = 512;            // b's window past the band's 32 K cells
@@ -217,15 +232,16 @@ __device__ inline float load_sub(const float* __restrict__ sub_g, float* sub, in
   return warp_max(mx);
 }
 
-// A pair's two sequences staged in its warp's shared memory (buf, A_CHUNK +
-// b_window(W) bytes) as substitution indices, clamped to 0..S-1 as the
-// reference's lookups clamp them. Row r reads a[r - 1] and b[j - 1] for its
+// A pair's two sequences staged in its warp's (CTA route: its CTA's) shared
+// memory (buf, A_CHUNK + b_window(W) bytes) as substitution indices, clamped
+// to 0..S-1 as the reference's lookups clamp them. Row r reads a[r - 1] and b[j - 1] for its
 // cells j (j - 1 clamped to 0..m-1 outside the interior), all of it within
 // the 32 K cells from the band's left column lo, which never moves left: the
 // window of b starts at column clamp(lo - 1) and moves when a row's cells
 // pass its end; a moves A_CHUNK rows at a time. rows(r, lo, q) stages what
 // row r reads and returns the last row the windows serve as they stand.
-struct Staged {
+template <bool CTA>
+struct StagedT {
   const int8_t* a;
   const int8_t* b;
   int n, m, S, KW, BW;
@@ -234,15 +250,21 @@ struct Staged {
   const int8_t* bcol;   // bcol[j] = b[j] clamped, for the columns staged
   int a_lim, b_lim;     // stage again at row index a_lim, at band column b_lim
 
-  __device__ __forceinline__ Staged(const int8_t* a_, int n_, const int8_t* b_, int m_, int S_,
-                                    int W, int8_t* buf_)
+  __device__ __forceinline__ StagedT(const int8_t* a_, int n_, const int8_t* b_, int m_, int S_,
+                                     int W, int8_t* buf_)
       : a(a_), b(b_), n(n_), m(m_), S(S_), KW(32 * cells_per_lane(W)), BW(b_window(W)),
         buf(buf_), acol(buf_), bcol(buf_ + A_CHUNK), a_lim(0), b_lim(-NO_LIMIT - 1) {}
 
   __device__ __forceinline__ void fill(const int8_t* src, int len, int8_t* dst) const {
-    __syncwarp();
-    for (int x = lane_id(); x < len; x += 32) dst[x] = (int8_t)clamp_i(src[x], 0, S - 1);
-    __syncwarp();
+    if constexpr (CTA) {
+      __syncthreads();
+      for (int x = threadIdx.x; x < len; x += blockDim.x) dst[x] = (int8_t)clamp_i(src[x], 0, S - 1);
+      __syncthreads();
+    } else {
+      __syncwarp();
+      for (int x = lane_id(); x < len; x += 32) dst[x] = (int8_t)clamp_i(src[x], 0, S - 1);
+      __syncwarp();
+    }
   }
   // row r (1-based) has band column lo, and each row's lo is at most q + 1
   // past the one before
@@ -264,6 +286,9 @@ struct Staged {
     return b_lim == NO_LIMIT ? last : min(last, r + (b_lim - lo - 1) / (q + 1));
   }
 };
+
+using Staged = StagedT<false>;        // a warp's pair
+using StagedWide = StagedT<true>;     // a CTA's pair (the wide route)
 
 struct Result {
   float score;
@@ -505,6 +530,275 @@ __device__ __forceinline__ Result band_forward(Staged& seq, int la, int lb, cons
   }
   res.edge = edge;
   return res;
+}
+
+// ---------------------------------------------------------------- wide route
+
+// Band cells a thread of the wide route holds: the least power of two K with
+// WIDE_THREADS K >= W (4 .. 32 for 1,024 < W <= 16,384).
+__host__ __device__ inline int wide_cells(int W) {
+  int K = 1;
+  while (WIDE_THREADS * K < W) K *= 2;
+  return K;
+}
+
+// Floats of one shared band row: 512 K cells and a pad float every 32.
+__host__ __device__ inline int wide_row_floats(int W) {
+  const int cap = WIDE_THREADS * wide_cells(W);
+  return cap + cap / 32;
+}
+
+__device__ __forceinline__ int pad_ix(int c) { return c + (c >> 5); }
+
+// A wide-route CTA's shared memory: the table, the three band rows, the
+// warp totals and maxima, then the staged windows of the pair.
+__host__ __device__ inline size_t wide_smem_bytes(int S, int W) {
+  return sub_bytes(S) + (3 * (size_t)wide_row_floats(W) + 2 * WIDE_WARPS) * 4 + A_CHUNK +
+         b_window(W);
+}
+
+// Pointers into that memory.
+struct WideSmem {
+  float* sub;
+  float* m;
+  float* x;
+  float* y;
+  float* wsum;    // each warp's inclusive Iy prefix total
+  float* wbest;   // each warp's row best
+  int8_t* buf;    // the staged windows
+  __device__ __forceinline__ WideSmem(uint8_t* smem, int S, int W) {
+    const int rf = wide_row_floats(W);
+    sub = reinterpret_cast<float*>(smem);
+    m = reinterpret_cast<float*>(smem + sub_bytes(S));
+    x = m + rf;
+    y = x + rf;
+    wsum = y + rf;
+    wbest = wsum + WIDE_WARPS;
+    buf = reinterpret_cast<int8_t*>(wbest + WIDE_WARPS);
+  }
+};
+
+// f(std::integral_constant<int, K>) for the wide route's K of band W.
+template <typename F>
+int with_wide_cells(int W, F&& f) {
+  switch (wide_cells(W)) {
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    case 16: return f(std::integral_constant<int, 16>{});
+    default: return f(std::integral_constant<int, 32>{});
+  }
+}
+
+// The max of v over the CTA (every thread gets it); wbest is free for the
+// call, and the barrier inside also publishes the shared writes before it.
+__device__ __forceinline__ float cta_max(float v, float* wbest) {
+  v = warp_max(v);
+  if (lane_id() == 0) wbest[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = wbest[0];
+#pragma unroll
+  for (int w = 1; w < WIDE_WARPS; ++w) r = fmaxf(r, wbest[w]);
+  return r;
+}
+
+// The banded forward of one pair by its CTA (the wide route, W > MAX_W):
+// the same operations on every cell as band_forward, in the same order.
+// store(dw) takes DP rows 1..n in order, each with the thread's K direction
+// nibbles packed 8 a word (cell t*K + q in bits 4(q%8) of word q/8; cells
+// >= W are don't-care). Returns the end score, its state and the
+// edge-pressure flag, the same in every thread. Needs m >= 1.
+template <int K, typename Store>
+__device__ __forceinline__ Result band_forward_wide(StagedWide& seq, int la, int lb,
+                                                    const WideSmem& sh, float go, float ge,
+                                                    int W, float margin, Store& store) {
+  constexpr int NWORD = (K + 7) / 8;
+  const int n = seq.n, m = seq.m, S = seq.S;
+  const int t = threadIdx.x, lane = lane_id(), warp = t >> 5;
+  const int base = t * K;
+  const int mid = W / 2;
+  const float NINF = neg_inf();
+
+  // row 0 (band_row_init)
+  BandCol col(la, lb, false);
+  int lo_prev = col.c - W / 2;
+  float hrow = NINF, cap_m = 0.0f, cap_x = 0.0f, cap_y = 0.0f;
+#pragma unroll
+  for (int q = 0; q < K; ++q) {
+    const int c = base + q, j = lo_prev + c;
+    const float mv = j == 0 ? 0.0f : NEGV;
+    const float yv = (j >= 1 && j <= lb) ? -(go + __fmul_rn((float)j - 1.0f, ge)) : NEGV;
+    const int p = pad_ix(c);
+    sh.m[p] = mv;
+    sh.x[p] = NEGV;
+    sh.y[p] = yv;
+    const float h = (j >= 0 && j <= lb) ? fmaxf(mv, yv) : NEGV;
+    if (c < W) hrow = fmaxf(hrow, h);
+    if (c == mid) {
+      cap_m = mv;
+      cap_x = NEGV;
+      cap_y = yv;
+    }
+  }
+  float hb_prev = cta_max(hrow, sh.wbest);
+  bool pressed = false;
+
+  for (int r = 1; r <= n;) {
+    // stage what the next rows read (every thread takes part)
+    BandCol next = col;
+    next.up();
+    const int last = seq.rows(r, next.c - W / 2, col.q);
+    for (; r <= last; ++r) {
+      col.up();
+      const int lo_i = col.c - W / 2;
+      const int s = lo_i - lo_prev;                   // band slide (>= 0)
+      const float* srow = sh.sub + seq.acol[r - 1] * S;
+      const bool live = r <= la;
+      const bool pon = live && hb_prev > NEGV / 2;
+      const float pt = hb_prev - margin;
+
+      // the previous row at c+s-1 and c+s (band_row_update), M and Ix of
+      // this row, the M argmax and Ix extension bits, and the thread's
+      // running max of M[c] + c*ge
+      float mn[K], xn[K];
+      uint32_t dw[NWORD];
+#pragma unroll
+      for (int w = 0; w < NWORD; ++w) dw[w] = 0;
+      float run = NINF;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const int c = base + q, j = lo_i + c;
+        float hd = NEGV, mu = NEGV, xu = NEGV;
+        int dm = M_ST;
+        if (c + s >= 1 && c + s - 1 < W) {
+          const int d = pad_ix(c + s - 1);
+          const float m0 = sh.m[d], x0 = sh.x[d], y0 = sh.y[d];
+          hd = fmaxf(m0, fmaxf(x0, y0));
+          dm = m0 >= hd ? M_ST : (x0 >= hd ? IX_ST : IY_ST);
+        }
+        if (c + s < W) {
+          const int u = pad_ix(c + s);
+          mu = sh.m[u];
+          xu = sh.x[u];
+        }
+        const int bc = seq.bcol[clamp_i(j - 1, 0, m - 1)];
+        mn[q] = (j >= 1 && j <= lb) ? hd + srow[bc] : NEGV;
+        const float ix_open = mu - go, ix_ext = xu - ge;
+        xn[q] = (j >= 0 && j <= lb) ? fmaxf(ix_open, ix_ext) : NEGV;
+        dw[q / 8] |= (uint32_t)(dm | ((ix_ext > ix_open ? 1 : 0) << 2)) << (4 * (q % 8));
+        run = fmaxf(run, mn[q] + __fmul_rn((float)c, ge));
+        // bottom-left exit: a previous-row cell about to slide out
+        if (pon && c < s && c < W) {
+          const int o = pad_ix(c);
+          pressed = pressed || fmaxf(sh.m[o], fmaxf(sh.x[o], sh.y[o])) >= pt;
+        }
+      }
+      // the Iy prefix across the CTA: a warp scan of the thread totals, then
+      // the totals of the warps before
+      float incl = run;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) incl = fmaxf(incl, __shfl_up_sync(FULL, incl, d));
+      float excl = __shfl_up_sync(FULL, incl, 1);
+      if (lane == 0) excl = NINF;
+      if (lane == 31) sh.wsum[warp] = incl;
+      __syncthreads();                                // every old cell is read
+      for (int w = 0; w < warp; ++w) excl = fmaxf(excl, sh.wsum[w]);
+
+      // Iy, the new row into shared memory, the row best, the right-rim
+      // and offset-0 zone, the Iy extension bits of cells q >= 1
+      const int smin1 = s > 1 ? s : 1;
+      float pre = excl, best = NINF, zmax = NINF, ml = NEGV, yl = NEGV;
+#pragma unroll
+      for (int q = 0; q < K; ++q) {
+        const int c = base + q, j = lo_i + c;
+        const bool in_mat = j >= 1 && j <= lb;
+        const float y = c == 0 ? NEGV : (pre - go) - __fmul_rn((float)c - 1.0f, ge);
+        const float yq = in_mat ? y : NEGV;
+        pre = fmaxf(pre, mn[q] + __fmul_rn((float)c, ge));
+        if (q > 0) dw[q / 8] |= (uint32_t)((yl - ge) > (ml - go) ? 1 : 0) << (4 * (q % 8) + 3);
+        const int p = pad_ix(c);
+        sh.m[p] = mn[q];
+        sh.x[p] = xn[q];
+        sh.y[p] = yq;
+        const float h = (j >= 0 && j <= lb) ? fmaxf(mn[q], fmaxf(xn[q], yq)) : NEGV;
+        if (c < W) {
+          best = fmaxf(best, h);
+          if (c == 0 || c >= W - smin1) zmax = fmaxf(zmax, h);
+        }
+        if (live && r == la && c == mid) {           // end cell (la, lb) sits at mid
+          cap_m = mn[q];
+          cap_x = xn[q];
+          cap_y = yq;
+        }
+        ml = mn[q];
+        yl = yq;
+      }
+      const float ml_up = __shfl_up_sync(FULL, ml, 1), yl_up = __shfl_up_sync(FULL, yl, 1);
+      best = warp_max(best);
+      if (lane == 0) sh.wbest[warp] = best;
+      __syncthreads();                                // the new row is written
+      if (live) {
+        float hb = sh.wbest[0];
+#pragma unroll
+        for (int w = 1; w < WIDE_WARPS; ++w) hb = fmaxf(hb, sh.wbest[w]);
+        pressed = pressed || (hb > NEGV / 2 && zmax >= hb - margin);
+        hb_prev = hb;
+      }
+      // cell base - 1: the lane below, or for a warp's lane 0 the shared row
+      float m_left = ml_up, y_left = yl_up;
+      if (lane == 0) {
+        m_left = NEGV;
+        y_left = NEGV;
+        if (t > 0) {
+          m_left = sh.m[pad_ix(base - 1)];
+          y_left = sh.y[pad_ix(base - 1)];
+        }
+      }
+      dw[0] |= (uint32_t)((y_left - ge) > (m_left - go) ? 1 : 0) << 3;
+      store(dw);
+      lo_prev = lo_i;
+    }
+  }
+
+  // the end captures from their thread, the flag from every thread
+  if (base <= mid && mid < base + K) {
+    sh.wsum[0] = cap_m;
+    sh.wsum[1] = cap_x;
+    sh.wsum[2] = cap_y;
+  }
+  const bool edge = __syncthreads_or(pressed) != 0;
+  Result res;
+  res.state = M_ST;
+  res.score = sh.wsum[0];
+  if (sh.wsum[1] > res.score) {
+    res.state = IX_ST;
+    res.score = sh.wsum[1];
+  }
+  if (sh.wsum[2] > res.score) {
+    res.state = IY_ST;
+    res.score = sh.wsum[2];
+  }
+  res.edge = edge;
+  __syncthreads();                                    // wsum is read
+  return res;
+}
+
+// Registers, local-memory (spill) bytes and CTAs an SM of one instantiation
+// at smem bytes of shared memory (past 48 KB the kernel is opted in first,
+// as its launch does).
+template <typename Kernel>
+int kernel_attrs(Kernel kernel, int threads, size_t smem, int* regs, int* local_bytes,
+                 int* ctas_per_sm) {
+  cudaError_t err = cudaSuccess;
+  if (smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncAttributes at;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&at, kernel);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  *regs = at.numRegs;
+  *local_bytes = (int)at.localSizeBytes;
+  return 0;
 }
 
 }  // namespace banded

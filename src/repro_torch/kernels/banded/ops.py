@@ -4,15 +4,18 @@ plain version.
 ``banded_forward`` launches ``csrc/banded_forward.cu`` and
 ``banded_pairs_fused`` launches ``csrc/banded_fused.cu`` for CUDA
 tensors; for CPU tensors both run the plain version (``ref.py``). There
-is no other path. Both kernels run a pair a warp, ``PAIRS_PER_CTA`` a
-CTA, each warp staging its pair's sequences in shared memory in windows
-that follow the band, so sequences of any length fit. Kernel 3 takes one
-pass over B. The fused kernel keeps each pair's (n, W) direction band at
-4 bits a cell (rows of ``band_pitch`` bytes) and its walk's moves in a
-device workspace of one slot a pair slot of a persistent grid, as many
-CTAs as the card holds at once (``fused_plan``), so the workspace does
-not grow with B. ``forward_launches`` and ``fused_launches`` count kernel
-launches.
+is no other path. Both kernels take any band W in 1..``MAX_BAND`` on two
+routes: up to ``WARP_MAX_BAND`` a pair a warp, ``PAIRS_PER_CTA`` a CTA;
+wider bands a pair a CTA of 512 threads, the band's rows in shared memory
+(``pairs_per_cta``). Each pair's sequences are staged in shared memory in
+windows that follow the band, so sequences of any length fit. Kernel 3
+takes one pass over B. The fused kernel keeps each pair's (n, W)
+direction band at 4 bits a cell (rows of ``band_pitch`` bytes) and its
+walk's moves in a device workspace of one slot a pair slot of a
+persistent grid, as many CTAs as the card holds at once and no more than
+``WORKSPACE_BUDGET`` bytes of slots (``fused_plan``), so the workspace
+does not grow with B. ``forward_launches`` and ``fused_launches`` count
+kernel launches.
 """
 from __future__ import annotations
 
@@ -27,22 +30,33 @@ from . import ref as _ref
 from .ref import BandedForward
 
 MAX_SUB = 32
-MAX_BAND = 1024
+MAX_BAND = 16384           # csrc/banded_row.cuh: MAX_WIDE_W
+WARP_MAX_BAND = 1024       # the warp route's widest band (MAX_W)
 PAIRS_PER_CTA = 8          # a pair a warp (csrc/banded_row.cuh: PAIRS)
+# the most bytes of kernel 4's workspace one call takes; a slot larger
+# than this still gets one CTA
+WORKSPACE_BUDGET = 2 << 30
 
 forward_launches = 0    # kernel launches, for a run to show it used them
 fused_launches = 0
 
 
 class FusedPlan(NamedTuple):
-    grid: int               # CTAs of PAIRS_PER_CTA pair slots
+    grid: int               # CTAs of pairs_per_cta(band) pair slots
     slot_bytes: int         # workspace a pair slot: its band, its moves
-    workspace_bytes: int    # grid * PAIRS_PER_CTA * slot_bytes
+    workspace_bytes: int    # grid * pairs_per_cta(band) * slot_bytes
+
+
+def pairs_per_cta(band: int) -> int:
+    """Pairs a CTA of either kernel holds: ``PAIRS_PER_CTA`` on the warp
+    route (W <= ``WARP_MAX_BAND``), one on the wide route."""
+    return PAIRS_PER_CTA if band <= WARP_MAX_BAND else 1
 
 
 def cells_per_lane(band: int) -> int:
     """K, the band cells a lane holds: the least power of two with
-    32 K >= band."""
+    32 K >= band (on the wide route a warp's 32 K cells are spread over
+    its 32 threads' shares)."""
     K = 1
     while 32 * K < band:
         K *= 2
@@ -51,7 +65,7 @@ def cells_per_lane(band: int) -> int:
 
 def band_pitch(band: int) -> int:
     """Bytes of a packed direction row of the fused kernel (32 K cells at
-    4 bits)."""
+    4 bits, on either route)."""
     return 16 * cells_per_lane(band)
 
 
@@ -66,13 +80,16 @@ def _cdiv(x: int, y: int) -> int:
 def fused_plan(B: int, n: int, m: int, band: int, ctas: int) -> FusedPlan:
     """Kernel 4's launch on a card that holds ``ctas`` of its CTAs at once
     (SMs x ``fused_kernel_attrs``' CTAs an SM): a persistent grid of at
-    most that many CTAs, pair slot p serving pairs p, p + slots, ..., each
+    most that many CTAs and at most ``WORKSPACE_BUDGET`` bytes of slots
+    (at least one CTA), pair slot p serving pairs p, p + slots, ..., each
     slot's workspace its packed band, then its walk's 2-bit moves (16 a
     word). ``csrc/banded_fused.cu::fused_slot_bytes`` is the same layout;
-    the kernel's entry refuses a workspace smaller than it."""
+    the kernel's entry refuses a workspace smaller than it. Each pair's
+    result is its own, so any grid gives the same results."""
     slot = n * band_pitch(band) + _round16((n + m + 15) // 16 * 4)
-    grid = max(1, min(_cdiv(B, PAIRS_PER_CTA), ctas))
-    return FusedPlan(grid, slot, grid * PAIRS_PER_CTA * slot)
+    per = pairs_per_cta(band)
+    grid = max(1, min(_cdiv(B, per), ctas, WORKSPACE_BUDGET // (per * slot)))
+    return FusedPlan(grid, slot, grid * per * slot)
 
 
 _P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
@@ -209,17 +226,26 @@ def banded_pairs_fused(a, b, lens, sub, *, gap_open, gap_extend, band,
             rec[:, 4].to(torch.int32), rec[:, 5] > 0.5)
 
 
+def _attrs(entry: str, lib: str, band: int, S: int) -> dict:
+    fn = _fn(entry, [_I, _I, _P, _P, _P], lib)
+    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = fn(int(band), int(S), ctypes.byref(regs), ctypes.byref(local),
+             ctypes.byref(ctas))
+    _build.check_launch(err, entry)
+    return dict(registers=regs.value, local_bytes=local.value,
+                ctas_per_sm=ctas.value)
+
+
 def fused_kernel_attrs(band: int, S: int) -> dict:
     """Registers and local-memory (spill) bytes a thread of kernel 4's
     instantiation for ``band`` uses, and the CTAs of it an SM holds at
     once with an S x S table (card only)."""
-    fn = _fn("banded_fused_attrs", [_I, _I, _P, _P, _P], "banded_fused")
-    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = fn(int(band), int(S), ctypes.byref(regs), ctypes.byref(local),
-             ctypes.byref(ctas))
-    _build.check_launch(err, "banded_fused_attrs")
-    return dict(registers=regs.value, local_bytes=local.value,
-                ctas_per_sm=ctas.value)
+    return _attrs("banded_fused_attrs", "banded_fused", band, S)
+
+
+def forward_kernel_attrs(band: int, S: int) -> dict:
+    """The same for kernel 3's instantiation for ``band`` (card only)."""
+    return _attrs("banded_forward_attrs", "banded_forward", band, S)
 
 
 @functools.lru_cache(maxsize=None)

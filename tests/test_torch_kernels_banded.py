@@ -159,6 +159,30 @@ def test_fused_plain_matches_jax_forward_traceback(B, n, m, W, slides):
     _eq(ok.numpy(), jok, "ok")
 
 
+@pytest.mark.parametrize("B,n,m,W,slides", [
+    pytest.param(4, 20, 300, 2048, False, id="4-20-300-2048"),
+    pytest.param(4, 16, 200, 4096, True, id="slides-4-16-200-4096"),
+    pytest.param(3, 12, 2500, 2048, True, id="slides-3-12-2500-2048"),
+])
+def test_wide_band_plain_versions_match_jax(B, n, m, W, slides):
+    """Past the warp route's 1,024 (the kernels' wide route), the plain
+    versions of both kernels against the JAX band scan and its traceback:
+    every direction byte, score, start state and edge flag, and the rows,
+    lengths and ok flags; with slides of ~200 columns a row."""
+    A, T, lens = (_slide_case if slides else _case)(W + m, B, n, m)
+    got = _port(ops.banded_forward, A, T, lens, gap_open=3, gap_extend=1,
+                band=W)
+    scan = _jax_forward(A, T, lens, 3, 1, W)
+    for field in ("dirs", "score", "start_i", "start_j", "start_state",
+                  "edge"):
+        _eq(getattr(got, field).numpy(), getattr(scan, field), field)
+    fused = _port(ops.banded_pairs_fused, A, T, lens, gap_open=3,
+                  gap_extend=1, band=W)
+    for name, x, y in zip(("score", "a_row", "b_row", "aln_len", "ok"),
+                          fused, _jax_pairs(A, T, lens, 3, 1, W)):
+        _eq(x.numpy(), y, name)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_escape_sweep_flags_match_jax(seed):
     """The seeded adversarial sweep of ``tests/test_kernels_banded.py``
@@ -194,8 +218,10 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
             fn(a.to(torch.int32), t, ln, TSUB, band=8, **kw)
         with pytest.raises(ValueError, match="lens"):
             fn(a, t, ln.to(torch.int64), TSUB, band=8, **kw)
-        with pytest.raises(ValueError, match="band"):
+        with pytest.raises(ValueError, match=f"band {ops.MAX_BAND + 1} "
+                           f"outside the kernels' 1..{ops.MAX_BAND}"):
             fn(a, t, ln, TSUB, band=ops.MAX_BAND + 1, **kw)
+        fn(a, t, ln, TSUB, band=ops.WARP_MAX_BAND + 1, **kw)   # wide route
         with pytest.raises(ValueError, match="band"):
             fn(a, t, ln, TSUB, band=0, **kw)
         with pytest.raises(ValueError):
@@ -204,6 +230,7 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
             fn(a, t, ln, TSUB.double(), band=8, **kw)
         fn(a, t, ln, TSUB, band=8, **kw)            # the plain version
     assert (ops.forward_launches, ops.fused_launches) == before
+    assert (ops.MAX_BAND, ops.WARP_MAX_BAND) == (16384, 1024)
     # the fused kernel's band lives in a workspace of the plan's pair
     # slots, whatever the lengths (the first design kept short bands in
     # shared memory)
@@ -216,30 +243,42 @@ def test_wrappers_reject_bad_inputs_and_count_no_cpu_launch():
 @pytest.mark.parametrize("n,m,W", [
     (1447, 1486, 64), (3735, 1493, 64), (200, 180, 64), (37, 53, 8),
     (1700, 1800, 128), (4096, 4200, 64), (300, 400, 1024), (90, 120, 256),
+    (2048, 1500, 2048), (1024, 1100, 1025), (8192, 8192, 16384),
 ])
 def test_launch_plans_fit_the_card_and_bound_the_workspace(n, m, W):
     """Kernel 4's launch plan as pure arithmetic: every pair covered by
     the pair slots of the grid (a persistent grid's slot p takes pairs p,
-    p + slots, ...), no more CTAs than the card holds at once, and a
+    p + slots, ...), no more CTAs than the card holds at once nor more
+    slots than ``WORKSPACE_BUDGET`` holds (one CTA at least), and a
     workspace of one slot a pair slot (the packed band, n rows of 16 K
     bytes for 32 K >= W cells, then the walk's moves at 2 bits a step),
-    the same for any B past what the card holds."""
+    the same for any B past what the card holds. Past W = 1,024 a CTA
+    holds one pair (the wide route)."""
     K = ops.cells_per_lane(W)
     assert 32 * K >= W and (K == 1 or 16 * K < W)
     assert ops.band_pitch(W) == 16 * K
+    per = ops.pairs_per_cta(W)
+    assert per == (ops.PAIRS_PER_CTA if W <= 1024 else 1)
     slot = n * 16 * K + -(-((n + m + 15) // 16 * 4) // 16) * 16
+    fit = max(1, ops.WORKSPACE_BUDGET // (per * slot))
     for ctas in (132, 528, 1056):
         for B in (1, 13, 1000, 16384, 65536):
             plan = ops.fused_plan(B, n, m, W, ctas)
             assert plan.slot_bytes == slot
-            assert 1 <= plan.grid <= ctas
-            slots = plan.grid * ops.PAIRS_PER_CTA
-            assert slots >= B or plan.grid == ctas
+            assert 1 <= plan.grid <= min(ctas, fit)
+            slots = plan.grid * per
+            assert slots >= B or plan.grid == min(ctas, fit)
             assert plan.workspace_bytes == slots * slot
+            assert plan.workspace_bytes <= max(ops.WORKSPACE_BUDGET,
+                                               per * slot)
         # the workspace stops growing with B once the grid is full
         big = {ops.fused_plan(B, n, m, W, ctas).workspace_bytes
                for B in (8 * ctas, 65536, 1 << 20)}
-        assert big == {ctas * ops.PAIRS_PER_CTA * slot}
+        assert big == {min(ctas, fit) * per * slot}
+    if W == 16384:
+        # the widest band at n = 8,192: 67 MB a slot, 31 slots in 2 GiB
+        assert slot == 8192 * 8192 + 4096 and fit == 31
+        assert ops.fused_plan(4096, n, m, W, 132).grid == 31
     # at the search shape: 4 CTAs of 8 pair slots an SM on 132 SMs, each
     # slot a band of 1,447 rows x 32 bytes and 2,933 moves (~196 MB)
     if (n, m, W) == (1447, 1486, 64):

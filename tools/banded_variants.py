@@ -24,9 +24,10 @@ again in reverse, the kernel; CUDA events, 3 runs each after a warm-up)
 and prints one JSON line per copy: its times, whether it equals the
 plain version, and for the kernels the device bytes one call allocates
 above what was in use (the fused kernel's workspace shows there).
-``--parent DIR`` adds the two banded kernels of another checkout (the
-first design's C entries: a CTA a pair, kernel 4's band in shared memory
-up to 200 KB, else a (B, n, W) workspace) to the turns.
+``--parent DIR`` adds the two banded kernels of another checkout to the
+turns, through the same C entries (kernel 4's sized workspace, its grid
+from that copy's own occupancy). The copies here cover the warp route
+(W <= 1,024); ``chip_smoke.py`` times the wide route.
 """
 from __future__ import annotations
 
@@ -77,10 +78,10 @@ P, LL, I, F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, \
 
 
 def build_copies(build, copies, parent=None):
-    """One nvcc per copy, all started together; {name: (lib, log)}.
-    Copies named ``parent_*`` are built from ``parent``'s sources."""
+    """One nvcc per copy, all started together once every copy's sources
+    are written; {name: (lib, log)}. Copies named ``parent_*`` are built
+    from ``parent``'s sources."""
     out_dir = build.BUILD_DIR / "variants"
-    procs = {}
     for name, (kind, edits) in copies.items():
         d = out_dir / f"banded_{name}"
         d.mkdir(parents=True, exist_ok=True)
@@ -95,19 +96,21 @@ def build_copies(build, copies, parent=None):
                                      f"{fname}, not once")
                 text = text.replace(good, bad)
             (d / fname).write_text(text)
+    procs = {}
+    for name, (kind, _) in copies.items():
+        d = out_dir / f"banded_{name}"
         so = d / f"banded_{kind}.so"
         procs[name] = so, subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(so),
              str(d / f"banded_{kind}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
-    built = {}
+    logs = {name: proc.communicate()[0] for name, (_, proc) in procs.items()}
     for name, (so, proc) in procs.items():
-        log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"banded_variants: nvcc failed for {name}:\n"
-                             f"{log}")
-        built[name] = ctypes.CDLL(str(so)), log
-    return built
+                             f"{logs[name]}")
+    return {name: (ctypes.CDLL(str(so)), logs[name])
+            for name, (so, _) in procs.items()}
 
 
 def entry(lib, name, argtypes):
@@ -193,7 +196,7 @@ def main() -> int:
         m = b.shape[1]
         head = [a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
                 lens.data_ptr(), sub.data_ptr(), S]
-        if COPIES[name][0] == "forward":     # the same entry in both designs
+        if COPIES[name][0] == "forward":
             fn = entry(lib, "banded_forward", [P, LL, P, LL, P, P, I, P, P, I,
                                                I, I, I, F, F, P])
             dirs = torch.empty((B, n, W), dtype=torch.int8, device="cuda")
@@ -204,26 +207,15 @@ def main() -> int:
         a_row = torch.empty((B, n + m), dtype=torch.int8, device="cuda")
         b_row = torch.empty((B, n + m), dtype=torch.int8, device="cuda")
         rec = torch.zeros((B, 8), dtype=torch.float32, device="cuda")
-        if name == "parent_fused":
-            fn = entry(lib, "banded_fused", [P, LL, P, LL, P, P, I, P, P, P,
-                                             P, I, I, I, I, F, F, I, I, P])
-            smem = n * W <= 200 * 1024
-            work = torch.empty(0 if smem else B * n * W, dtype=torch.int8,
-                               device="cuda")
-            err = fn(*head, a_row.data_ptr(), b_row.data_ptr(),
-                     rec.data_ptr(), work.data_ptr(), B, n, m, W, 3.0, 1.0, 5,
-                     int(smem), stream)
-        else:
-            fn = entry(lib, "banded_fused", [P, LL, P, LL, P, P, I, P, P, P,
-                                             P, LL, I, I, I, I, F, F, I, I,
-                                             P])
-            plan = ops.fused_plan(B, n, m, W, ctas(name, W))
-            work = torch.empty(plan.workspace_bytes, dtype=torch.uint8,
-                               device="cuda")
-            err = fn(*head, a_row.data_ptr(), b_row.data_ptr(),
-                     rec.data_ptr(), work.data_ptr(), plan.workspace_bytes,
-                     B, n, m, W, 3.0, 1.0, 5, plan.grid, stream)
-        _build.check_launch(err, name)
+        fn = entry(lib, "banded_fused", [P, LL, P, LL, P, P, I, P, P, P, P,
+                                         LL, I, I, I, I, F, F, I, I, P])
+        plan = ops.fused_plan(B, n, m, W, ctas(name, W))
+        work = torch.empty(plan.workspace_bytes, dtype=torch.uint8,
+                           device="cuda")
+        _build.check_launch(fn(*head, a_row.data_ptr(), b_row.data_ptr(),
+                               rec.data_ptr(), work.data_ptr(),
+                               plan.workspace_bytes, B, n, m, W, 3.0, 1.0, 5,
+                               plan.grid, stream), name)
         return fused_out(rec, a_row, b_row)
 
     for label, B, n, m, W in SHAPES:
