@@ -78,7 +78,8 @@ Phases, in order; any failure exits non-zero:
      each run prints its kernel-2 launches by route;
  13. run ``msa_run --tree ml`` (auto backend, here cluster, plus ML
      refinement at its defaults: model auto, 150 Adam steps, 8 NNI
-     rounds) on 1,024 sequences simulated with Phi_DNA's parameters
+     rounds) on 512 sequences (cut from 1,024 to make room for phase 21)
+     simulated with Phi_DNA's parameters
      (mitochondrial-like: root_len 2,048, branch_sub 0.002, branch_indel
      0.0002): kernels 1 and 2 launched, a registry model, final logL >=
      initial; print seconds by stage (``ml.fit``, ``ml.score``), the
@@ -109,7 +110,9 @@ Phases, in order; any failure exits non-zero:
      250 and K/V expanded over the KV heads (head stride 0) at D = 64,
      120 and 256 (the bf16 kernel's element route at each padded head
      dim), 1,000 queries at q_offset 2,000 over 3,000 keys, and the (B, H,
-     S, D) entry ``ops.flash_attention`` (transposed strides), f32 and bf16;
+     S, D) entry ``ops.flash_attention`` (transposed strides), and the
+     other families' layouts at S = 2,048 (16/16/128, 64/8/112, 12/2/128
+     and 64/8/128 causal, 16/16/80 not causal), f32 and bf16;
      run ``repro_torch.launch.serve
      --arch h2o-danube-3-4b --batch 4 --prompt-len 8192 --gen 32`` at full
      width (random weights, seed 0): kernel 5 launched once per layer (24),
@@ -177,7 +180,33 @@ Phases, in order; any failure exits non-zero:
      Table 4 protein family (16 x 459) and on 128 of phase 6's sequences:
      rows decode to their inputs; seconds and avg SP beside
      ``center_star_msa`` on the same family;
- and print each kernel on its own path as one JSON line.
+ 21. the LM's other families (random f32 weights, seed 0; bf16 compute
+     unless named): ``launch.serve --arch mamba2-130m --batch 4
+     --prompt-len 8192 --gen 32`` at full width and depth (kernel 5
+     launched 0 times: attention-free); through ``make_prefill_step`` /
+     ``make_decode_step``: moonshot-v1-16b-a3b at full width, 12 of 48
+     layers, 4 x 2,048 and 31 steps (12 launches; the MoE's dropped
+     picks printed), qwen2-vl-2b at full width and depth on 4 x 4,096
+     random embeddings with the M-RoPE positions of a text run, a 32 x 32
+     image grid and text again, 15 steps on embeddings (28 launches),
+     jamba-1.5-large-398b as one group of 8 layers with d_ff (experts and
+     the mamba layers' MLP) cut from 24,576 to 4,096, 2 x 4,096 and 15
+     steps (1 launch), kimi-k2-1t-a32b as its dense prefix (d_ff 18,432)
+     and one MoE layer with 32 of its 384 experts, top-8, 2 x 2,048 and 7
+     steps (2 launches); ``apply_model`` on hubert-xlarge at full width
+     and depth, 4 x 4,096 frame embeddings, not causal (48 launches);
+     each run's prefill ms, decode ms per token, device peak above the
+     memory in use at its start and launches; f32 prefill/decode
+     continuity at B = 1 (atol 2e-3) for mamba2 (8,192), moonshot at
+     capacity 11.0 (2,048) and jamba at capacity 8.0 (4,096), where C =
+     T and nothing drops; the largest tensor one ``moe_block`` call
+     (moonshot, 4 x 2,048) and one ``ssd_chunked`` call (mamba2 4 x
+     8,192, jamba 2 x 4,096) make, beside the reference's (T, E, C)
+     one-hot and the (B, nc, nh, Q, Q) decay; kernel 5 timed at
+     qwen2-vl's and hubert's prefill shapes beside its bound, its plain
+     version and SDPA;
+ each phase prints its seconds on a line of its own; then print each
+ kernel on its own path as one JSON line.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or without the rest of the repository, it exits non-zero and prints no
@@ -253,6 +282,18 @@ def cuda_ms(fn, reps: int = 3):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps, out
+
+
+def phase_clock():
+    """A function printing the seconds since its last call (or since this
+    one) as ``phase <label>: <s> s`` on a line of its own."""
+    last = [time.time()]
+
+    def mark(label) -> None:
+        now = time.time()
+        print(f"phase {label}: {now - last[0]:.1f} s", flush=True)
+        last[0] = now
+    return mark
 
 
 def host_ms(fn, reps: int = 20) -> float:
@@ -1312,7 +1353,7 @@ def hold_tree_calls(runs) -> float:
 
 
 def tree_phases(fam, fasta: Path, work: Path, n_big: int = N_BIG,
-                route: str = "cuda") -> float:
+                route: str = "cuda", mark=lambda label: None) -> float:
     """Phases 10-12: the tree backends on ``fam``'s alignment from phase 6
     and on ``n_big`` simulated aligned rows, then kernel 2's tree calls
     held against its plain version. Returns the largest count error."""
@@ -1345,6 +1386,7 @@ def tree_phases(fam, fasta: Path, work: Path, n_big: int = N_BIG,
     print(f"msa_run --tree tiled --tree-ll: logL "
           f"{treport['log_likelihood']}, tile_stats "
           f"{json.dumps(treport['tile_stats'])}")
+    mark(10)
 
     # the tree backends at n_big aligned rows (no indels: no MSA run)
     big = simulate(n_big, indel=0.0)
@@ -1362,13 +1404,16 @@ def tree_phases(fam, fasta: Path, work: Path, n_big: int = N_BIG,
             within_strip(report, n_big, f"auto {n_big}")
     same_tree(tree_runs[f"auto {n_big}"], tree_runs[f"cluster {n_big}"],
               f"auto (tiled) and cluster at {n_big}")
-    return hold_tree_calls((label, obs)
-                           for label, (obs, _) in tree_runs.items())
+    mark(11)
+    err = hold_tree_calls((label, obs) for label, (obs, _) in
+                          tree_runs.items())
+    mark(12)
+    return err
 
 
 # ----------------------------------------------------------------- ML paths
 
-N_ML = 1024            # msa_run --tree ml: Phi_DNA's shape at scale 64
+N_ML = 512             # msa_run --tree ml: Phi_DNA's shape (cut from 1,024)
 N_FLEET = 128          # the tree-search fleet (cut from 256: PERF.md)
 N_BOOT = 100           # tree_run --bootstrap
 ML_STAGES = ("map1", "assemble", "write", "score", "tree.distance",
@@ -1629,11 +1674,11 @@ def fleet_phase(msa, names, work: Path, card: str = "cuda") -> None:
           f"{rep['search']['n_moves']}")
 
 
-def ml_phases(work: Path, route: str = "cuda"):
+def ml_phases(work: Path, route: str = "cuda", mark=lambda label: None):
     """Phases 13-16, every scoring and bootstrap call held within its
     memory budget; returns the observer of phase 13's ``msa_run``."""
     with BudgetWatch() as budget:
-        obs = _ml_phases(work, route)
+        obs = _ml_phases(work, route, mark)
     if not all(budget.calls.values()):
         fail(f"phases 13-16 made no scoring or no bootstrap call: "
              f"{budget.calls}")
@@ -1642,7 +1687,7 @@ def ml_phases(work: Path, route: str = "cuda"):
     return obs
 
 
-def _ml_phases(work: Path, route: str):
+def _ml_phases(work: Path, route: str, mark):
     from repro_torch.core import alphabet as ab
     from repro_torch.data import phi_dna, write_fasta
     from repro_torch.phylo import TreeEngine, models
@@ -1681,6 +1726,7 @@ def _ml_phases(work: Path, route: str):
           f"{normalized_rf((tree.children, tree.root), truth, N_ML):.4f}")
     hold_loglik(msa, res, card)
     hold_fit(msa, res, card)
+    mark(13)
 
     # 14: tree_run --refine ml --bootstrap
     out = work / "tree_ml_boot"
@@ -1695,9 +1741,11 @@ def _ml_phases(work: Path, route: str):
           f"{N_BOOT / secs:.2f} replicates/s, {n_labels} supported edges, "
           f"mean support {rep['bootstrap']['mean_support']}")
     obs14.mv_largest = {}
+    mark(14)
 
     # 15: the search fleet, kill and resume
     fleet_phase(msa[:N_FLEET], fam.names[:N_FLEET], work, card)
+    mark(15)
 
     # 16: search_run --pipeline --bootstrap on phase 8's database
     _, queries = run_search(work, work / "db.fa", work / "q.fa",
@@ -2859,6 +2907,9 @@ def flash_cases():
                       dict(T=3000, q_offset=2000)))
         # the (B, H, S, D) entry, transposed strides
         cases.append((2, 700, 8, 2, 120, True, 256, dtype, dict(bhsd=True)))
+        # the other families' layouts (phase 21)
+        for H, KH, D, causal in FAMILY_FLASH_LAYOUTS:
+            cases.append((1, 2048, H, KH, D, causal, 0, dtype))
     return cases
 
 
@@ -2954,29 +3005,32 @@ def continuity_check(device="cuda", smoke=False, S=8192) -> float:
     return err
 
 
-def time_flash():
-    """Kernel 5 at the serve shape beside its bound, its plain version and
-    ``scaled_dot_product_attention`` (the port never calls it); returns
-    (timings, largest difference from the plain version)."""
+def time_flash(B=4, S=8192, H=32, KH=8, D=120, causal=True, W=4096,
+               label="the serve shape"):
+    """Kernel 5 at one prefill shape (by default the serve shape) beside
+    its bound, its plain version and ``scaled_dot_product_attention``
+    (the port never calls it); returns (timings, largest difference from
+    the plain version)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops, ref
-    B, S, H, KH, D, W = 4, 8192, 32, 8, 120, 4096
     q, k, v = flash_inputs(B, S, H, KH, D, torch.bfloat16, seed=99)
-    kw = dict(scale=D ** -0.5, causal=True, window=W)
+    kw = dict(scale=D ** -0.5, causal=causal, window=W)
     ms, out = cuda_ms(lambda: ops.attention(q, k, v, **kw))
     plain_ms, plain = cuda_ms(lambda: ref.blocked_attention(q, k, v, **kw),
                               reps=1)
     del plain
     err, excess = flash_error(out, flash_plain32(q, k, v, **kw))
     if not excess <= 0:
-        fail(f"flash_attention at the serve shape: {err}, {excess} over "
-             "the limit")
-    # the yardstick: one SDPA call with the window mask and GQA, on
+        fail(f"flash_attention at {label}: {err}, {excess} over the limit")
+    # the yardstick: one SDPA call with the same mask and GQA, on
     # (B, H, S, D) copies made outside the timing
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    pos = torch.arange(S, device="cuda")
-    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :] < W)
+    mask = None
+    if W > 0:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[:, None] - pos[None, :] < W) & \
+            ((pos[:, None] >= pos[None, :]) if causal else True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
 
     def sdpa():
@@ -2985,19 +3039,19 @@ def time_flash():
                           SDPBackend.FLASH_ATTENTION]):
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, scale=kw["scale"],
-                enable_gqa=True)
+                is_causal=causal and mask is None, enable_gqa=True)
     lib_ms, lib = cuda_ms(sdpa)
     lib_err = float((lib.transpose(1, 2).float() - out.float()).abs().max())
-    pairs = unmasked_pairs(S, True, W) * B * H
+    pairs = unmasked_pairs(S, causal, W) * B * H
     t_ops = pairs * 4 * D / BF16_OPS_PER_S * 1e3
     t_bytes = (q.numel() + k.numel() + v.numel() + out.numel()) * 2 \
         / HBM_BYTES_PER_S * 1e3
     timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
                   bound_by="operations" if t_ops >= t_bytes else "bytes",
                   library_ms=lib_ms)
-    print(f"flash_attention at the serve shape {B}x{H}x{S}x{D} (KH {KH}, "
-          f"window {W}, bf16, {pairs} unmasked pairs): {json.dumps(timing)}"
-          f"; sdpa differs from the kernel by {lib_err}")
+    print(f"flash_attention at {label} {B}x{H}x{S}x{D} (KH {KH}, causal "
+          f"{causal}, window {W}, bf16, {pairs} unmasked pairs): "
+          f"{json.dumps(timing)}; sdpa differs from the kernel by {lib_err}")
     return timing, err
 
 
@@ -3015,6 +3069,412 @@ def lm_phase(device="cuda", smoke=False):
     return launches, timing, max(err, e)
 
 
+# ------------------------------------------------------------ LM families
+
+# phase 21: the LM's other families. Each run is (arch, cuts of the
+# published config, batch, prompt, decode steps, kernel-5 launches its
+# prefill makes: one an attention layer)
+FAMILY_SERVE_ARCH = "mamba2-130m"                 # full width and depth
+FAMILY_SERVE_ARGS = ("--batch", "4", "--prompt-len", "8192", "--gen", "32")
+FAMILY_RUNS = (
+    ("moonshot-v1-16b-a3b", dict(n_layers=12), 4, 2048, 31, 12),
+    ("qwen2-vl-2b", {}, 4, 4096, 15, 28),
+    ("jamba-1.5-large-398b", dict(n_layers=8, d_ff=4096), 2, 4096, 15, 1),
+    ("kimi-k2-1t-a32b", dict(n_layers=2, n_experts=32), 2, 2048, 7, 2),
+)
+HUBERT = ("hubert-xlarge", 4, 4096, 48)         # apply_model, not causal
+VL_IMAGE_GRID = 32                              # qwen2-vl's 32 x 32 patches
+# f32 continuity at B = 1: (arch, cuts, prompt length). A prefill of N
+# tokens may drop a pick that one decode step keeps, so the MoE configs
+# run at a capacity factor of at least E / K, where C = T and nothing
+# drops (moonshot's 64 / 6 = 10.7: 8.0 dropped picks of its skewed
+# random-weight routing on the card)
+FAMILY_CONTINUITY = (
+    ("mamba2-130m", {}, 8192),
+    ("moonshot-v1-16b-a3b", dict(n_layers=12, capacity_factor=11.0), 2048),
+    ("jamba-1.5-large-398b", dict(n_layers=8, d_ff=4096,
+                                  capacity_factor=8.0), 4096),
+)
+# (H, KH, D, causal) of the families' attention at full width: moonshot,
+# kimi, qwen2-vl, jamba (causal), hubert (not causal)
+FAMILY_FLASH_LAYOUTS = ((16, 16, 128, True), (64, 8, 112, True),
+                        (12, 2, 128, True), (64, 8, 128, True),
+                        (16, 16, 80, False))
+
+
+def family_cfg(arch: str, cuts: dict, smoke: bool = False):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    spec = get_arch(arch)
+    if smoke:
+        keep = {k: v for k, v in cuts.items() if k == "capacity_factor"}
+        return dataclasses.replace(spec.smoke, **keep)
+    return dataclasses.replace(spec.config, **cuts)
+
+
+def vl_positions(B: int, S: int, device, grid: int = VL_IMAGE_GRID):
+    """qwen2-vl's three position streams (3, B, S) for a text run, an image
+    of grid x grid patches (t constant, h and w over the grid) and text
+    again, each text position one past the largest before it."""
+    import torch
+    while 2 * grid * grid > S:         # a short rehearsal prompt
+        grid //= 2
+    n_text = (S - grid * grid) // 4
+    n_img = grid * grid
+    pos = torch.empty((3, S), dtype=torch.int32, device=device)
+    pos[:, :n_text] = torch.arange(n_text, device=device)
+    r = torch.arange(n_img, device=device)
+    pos[0, n_text:n_text + n_img] = n_text
+    pos[1, n_text:n_text + n_img] = n_text + r // grid
+    pos[2, n_text:n_text + n_img] = n_text + r % grid
+    rest = S - n_text - n_img
+    pos[:, n_text + n_img:] = n_text + grid + torch.arange(rest,
+                                                          device=device)
+    return pos[:, None].expand(3, B, S).contiguous()
+
+
+def family_batch(cfg, B: int, S: int, device, seed: int = 1):
+    """Random tokens, or random embeddings (and M-RoPE positions) for a
+    model that takes them."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    if cfg.embed_input:
+        return {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=g, device=device)}
+    batch = {"embeds": torch.randn((B, S, cfg.d_model), generator=g,
+                                   device=device)}
+    if cfg.m_rope:
+        batch["pos3"] = vl_positions(B, S, device)
+    return batch
+
+
+class DropWatch:
+    """Count the MoE's dropped picks (place >= capacity) of every
+    ``moe_route`` call while it is on, on the device (no sync)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        self.saved, self.dropped, self.picks = layers.moe_route, [], 0
+        watch = self
+
+        def route(logits, K, C):
+            out = watch.saved(logits, K, C)
+            watch.dropped.append((~out[4]).sum())
+            watch.picks += out[4].numel()
+            return out
+        layers.moe_route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        layers.moe_route = self.saved
+        return False
+
+    def count(self) -> int:
+        return int(sum(int(d) for d in self.dropped))
+
+
+def largest_tensor(fn, *args, **kw):
+    """Run ``fn`` once, recording the largest tensor any operation inside
+    it makes (a dispatch mode sees every output) and its device memory
+    above what was allocated when it began; returns (bytes, op, peak
+    bytes)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        size, op = 0, ""
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    n = t.untyped_storage().nbytes()
+                    if n > Largest.size:
+                        Largest.size, Largest.op = n, str(func)
+            return out
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reset_peak()
+    with Largest():
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    return Largest.size, Largest.op, device_peak() - base
+
+
+def run_start():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reset_peak()
+    return base
+
+
+def check_logits(logits, shape, what: str, tokens=None, vocab=None):
+    import torch
+    if tuple(logits.shape) != tuple(shape) or \
+            not bool(torch.isfinite(logits).all()):
+        fail(f"{what}: logits {tuple(logits.shape)} (expected {shape}), "
+             f"finite {bool(torch.isfinite(logits).all())}")
+    if tokens is not None and not bool(((tokens >= 0) &
+                                        (tokens < vocab)).all()):
+        fail(f"{what}: tokens outside [0, {vocab})")
+
+
+def family_serve_run(device="cuda", smoke=False) -> dict:
+    """``launch.serve --arch mamba2-130m`` at full width and depth:
+    attention-free, so kernel 5 is launched 0 times."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    cfg = family_cfg(FAMILY_SERVE_ARCH, {}, smoke)
+    argv = ["--arch", FAMILY_SERVE_ARCH, *FAMILY_SERVE_ARGS] + \
+        (["--smoke", "--device", device] if smoke else [])
+    base = run_start()
+    t0 = time.time()
+    ops.launches = 0
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    launches = ops.launches
+    B, gen = int(FAMILY_SERVE_ARGS[1]), int(FAMILY_SERVE_ARGS[5])
+    row = dict(prefill_ms=res["prefill_ms"],
+               decode_ms_per_token=res["decode_ms_per_token"],
+               wall_s=round(time.time() - t0, 2),
+               peak_gib=round((device_peak() - base) / 2 ** 30, 3),
+               base_gib=round(base / 2 ** 30, 3), flash_launches=launches)
+    print(f"family serve {cfg.name} {' '.join(FAMILY_SERVE_ARGS)}: "
+          f"{json.dumps(row)}")
+    check_logits(res["logits"], (B, cfg.vocab_size), "family serve",
+                 res["tokens"], cfg.vocab_size)
+    if tuple(res["tokens"].shape) != (B, gen) or launches != 0:
+        fail(f"family serve {cfg.name}: tokens {tuple(res['tokens'].shape)}"
+             f", flash_attention launches {launches} (attention-free: 0)")
+    return row
+
+
+def family_steps_run(arch, cuts, B, S, n_decode, want_launches,
+                     device="cuda", smoke=False):
+    """``make_prefill_step`` / ``make_decode_step`` on one family at its
+    phase-21 size, with kernel 5's count reset just before the prefill
+    and read after it; decode feeds back greedy tokens, or fresh random
+    embedding rows where the model takes embeddings. Returns (row,
+    params)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import serve_step
+    cfg = family_cfg(arch, cuts, smoke)
+    run_start()
+    t0 = time.time()
+    params = tt.init_params(cfg, 0, device=device)
+    torch.cuda.synchronize()
+    t_init = time.time() - t0
+    base = run_start()                # the weights are in use at its start
+    batch = family_batch(cfg, B, S, device)
+    rows = family_batch(cfg, B, n_decode, device, seed=2)
+    prefill = serve_step.make_prefill_step(cfg, max_len=S + n_decode)
+    decode = serve_step.make_decode_step(cfg)
+    torch.cuda.synchronize()
+    ops.launches = 0
+    with DropWatch() as drops:
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+    launches = ops.launches
+    check_logits(logits, (B, cfg.vocab_size), f"{arch} prefill")
+    toks = [torch.argmax(logits, -1).to(torch.int32)]
+    pos = torch.full((B,), S, dtype=torch.int32, device=device)
+    t0 = time.perf_counter()
+    for i in range(n_decode):
+        x = toks[-1] if cfg.embed_input else rows["embeds"][:, i]
+        logits, cache = decode(params, cache, x, pos)
+        toks.append(torch.argmax(logits, -1).to(torch.int32))
+        pos = pos + 1
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    check_logits(logits, (B, cfg.vocab_size), f"{arch} decode",
+                 torch.stack(toks, 1), cfg.vocab_size)
+    row = dict(layers=cfg.n_layers, batch=B, prompt=S, decode_steps=n_decode,
+               init_s=round(t_init, 2),
+               prefill_ms=round(t_prefill * 1e3, 3),
+               decode_ms_per_token=round(t_decode / n_decode * 1e3, 3),
+               peak_gib=round((device_peak() - base) / 2 ** 30, 3),
+               base_gib=round(base / 2 ** 30, 3), flash_launches=launches)
+    if cfg.n_experts:
+        row.update(moe_dropped=drops.count(), moe_picks=drops.picks)
+    print(f"family {cfg.name} ({json.dumps(cuts)}): {json.dumps(row)}")
+    if launches != want_launches and not smoke:
+        fail(f"{arch}: prefill launched flash_attention {launches} times, "
+             f"not once per attention layer ({want_launches})")
+    del cache, logits
+    return row, params
+
+
+def hubert_run(device="cuda", smoke=False) -> dict:
+    """``apply_model`` on the audio encoder at full width and depth:
+    frame embeddings in, not causal, no cache."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as tt
+    arch, B, S, want = HUBERT
+    cfg = family_cfg(arch, {}, smoke)
+    run_start()
+    params = tt.init_params(cfg, 0, device=device)
+    base = run_start()                # the weights are in use at its start
+    batch = family_batch(cfg, B, S, device)
+    tt.apply_model(params, cfg, {"embeds": batch["embeds"][:, :64]})
+    torch.cuda.synchronize()
+    ops.launches = 0
+    t0 = time.perf_counter()
+    logits, _, aux = tt.apply_model(params, cfg, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launches
+    check_logits(logits, (B, S, cfg.vocab_size), f"{arch} encoder pass")
+    row = dict(layers=cfg.n_layers, batch=B, frames=S,
+               encoder_ms=round(ms, 3),
+               peak_gib=round((device_peak() - base) / 2 ** 30, 3),
+               base_gib=round(base / 2 ** 30, 3), flash_launches=launches)
+    print(f"family {cfg.name} apply_model (not causal): {json.dumps(row)}")
+    if launches != (cfg.n_layers if smoke else want):
+        fail(f"{arch}: flash_attention launched {launches} times, not once "
+             f"per layer ({want})")
+    return row
+
+
+def family_continuity(arch, cuts, S, device="cuda", smoke=False,
+                      params=None) -> float:
+    """Last-token logits of a prefill of S tokens against a prefill of
+    S - 1 plus one decode step, B = 1, f32 throughout."""
+    import torch
+    from repro_torch.models import transformer as tt
+    cfg = family_cfg(arch, cuts, smoke)
+    t0 = time.time()
+    if params is None:
+        params = tt.init_params(cfg, 0, device=device)
+    g = torch.Generator(device=device).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (1, S), generator=g,
+                         device=device)
+    f32 = dict(logits_mode="last", compute_dtype=torch.float32)
+    with DropWatch() as drops:
+        full, _, _ = tt.apply_model(params, cfg, {"tokens": toks}, **f32)
+        cache = tt.init_cache(cfg, 1, S, dtype=torch.float32, device=device)
+        _, cache, _ = tt.apply_model(params, cfg, {"tokens": toks[:, :-1]},
+                                     cache=cache, **f32)
+        pos = torch.full((1, 1), S - 1, dtype=torch.int32, device=device)
+        dec, _, _ = tt.apply_model(params, cfg, {"tokens": toks[:, -1:],
+                                                 "positions": pos},
+                                   cache=cache, **f32)
+    err = float((dec - full).abs().max())
+    print(f"continuity {cfg.name} ({json.dumps(cuts)}), f32, prefill {S} "
+          f"vs {S - 1} + 1 decode: max |logit difference| {err} (logits up "
+          f"to {float(full.abs().max()):.3f}; bound {CONTINUITY_ATOL}; MoE "
+          f"picks dropped {drops.count()}), {time.time() - t0:.1f} s")
+    if drops.count():
+        fail(f"continuity {cfg.name}: the MoE dropped picks")
+    if not err <= CONTINUITY_ATOL:
+        fail(f"continuity {cfg.name}: {err} > {CONTINUITY_ATOL}")
+    return err
+
+
+def family_memory(device="cuda", smoke=False) -> None:
+    """The largest tensor one ``moe_block`` call (moonshot's width, its
+    4 x 2,048 prefill) and one ``ssd_chunked`` call (mamba2-130m's 4 x
+    8,192 prefill; jamba's 2 x 4,096) make, beside the reference's (T, E,
+    C) f32 one-hot and the SSD's (B, nc, nh, Q, Q) f32 decay."""
+    import torch
+    from repro_torch.models import layers, mamba2, transformer as tt
+    cfg = family_cfg("moonshot-v1-16b-a3b", dict(n_layers=1), smoke)
+    p = tt.init_params(cfg, 0, device=device)["layers"][0]["moe"]
+    B, S = (4, 2048) if not smoke else (2, 40)
+    g = torch.Generator(device=device).manual_seed(4)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=device
+                    ).bfloat16()
+    T = B * S
+    C = layers._moe_capacity(T, cfg)
+    with torch.inference_mode():
+        big, op, peak = largest_tensor(layers.moe_block, p, x, cfg)
+    onehot = T * cfg.n_experts * C * 4
+    print(f"moe_block {cfg.name} T={T} E={cfg.n_experts} C={C} bf16: "
+          f"largest tensor {big / 2**20:.1f} MiB ({op}), call peak "
+          f"{peak / 2**20:.1f} MiB above its start; the reference's (T, E, "
+          f"C) f32 dispatch {onehot / 2**20:.1f} MiB")
+    if big >= onehot:
+        fail("moe_block made a tensor as large as (T, E, C)")
+    del p, x
+    for arch, cuts, B, S in (("mamba2-130m", {}, 4, 8192),
+                             ("jamba-1.5-large-398b", {}, 2, 4096)):
+        cfg = family_cfg(arch, cuts, smoke)
+        if smoke:
+            B, S = 2, 300
+        nh, hp, st = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+        g = torch.Generator(device=device).manual_seed(5)
+        x = torch.randn((B, S, nh, hp), generator=g, device=device
+                        ).bfloat16()
+        dt = torch.rand((B, S, nh), generator=g, device=device) * 0.1
+        A = -torch.rand((nh,), generator=g, device=device) - 0.5
+        Bm, Cm = (torch.randn((B, S, st), generator=g, device=device)
+                  for _ in range(2))
+        with torch.inference_mode():
+            big, op, peak = largest_tensor(mamba2.ssd_chunked, x, dt, A, Bm,
+                                           Cm)
+        nc = -(-S // 128)
+        decay = B * nc * nh * 128 * 128 * 4
+        print(f"ssd_chunked {cfg.name} B={B} S={S} nh={nh} hp={hp} st={st}:"
+              f" largest tensor {big / 2**20:.1f} MiB ({op}), call peak "
+              f"{peak / 2**20:.1f} MiB above its start; the (B, nc, nh, Q, "
+              f"Q) f32 decay {decay / 2**20:.1f} MiB, a (B, nc, Q, Q, nh, "
+              f"hp) one {decay * hp / 2**30:.1f} GiB")
+        if big > decay:
+            fail(f"ssd_chunked made a tensor larger than its decay ({big} > "
+                 f"{decay} bytes)")
+
+
+def families_phase(device="cuda", smoke=False):
+    """Phase 21: the LM's other families on the card (see the module
+    docstring); returns the rows printed."""
+    import gc
+
+    import torch
+    rows = {"serve " + FAMILY_SERVE_ARCH: family_serve_run(device, smoke)}
+    cont = {arch: (cuts, S) for arch, cuts, S in FAMILY_CONTINUITY}
+    for arch, cuts, B, S, n_dec, want in FAMILY_RUNS:
+        if smoke:
+            B, S, n_dec = 2, 40, 3
+        row, params = family_steps_run(arch, cuts, B, S, n_dec, want,
+                                       device, smoke)
+        rows[arch] = row
+        if arch in cont:
+            ccuts, cS = cont.pop(arch)
+            family_continuity(arch, ccuts, 48 if smoke else cS, device,
+                              smoke, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch, (ccuts, cS) in cont.items():
+        family_continuity(arch, ccuts, 48 if smoke else cS, device, smoke)
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows["hubert"] = hubert_run(device, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_memory(device, smoke)
+    if device == "cuda":
+        for arch, (B, S, H, KH, D, causal) in (
+                ("qwen2-vl-2b", (4, 4096, 12, 2, 128, True)),
+                ("hubert-xlarge", (4, 4096, 16, 16, 80, False))):
+            rows[f"flash {arch}"], _ = time_flash(
+                B, S, H, KH, D, causal, 0, label=f"{arch}'s prefill shape")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3022,6 +3482,7 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     t_start = time.time()
+    mark = phase_clock()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import _build
     from repro_torch.data import write_fasta
@@ -3038,9 +3499,12 @@ def main() -> int:
     t0 = time.time()
     built = _build.build()
     print(f"built {sorted(built)} in {time.time() - t0:.1f} s")
+    mark("1-2 (card, build)")
 
     sw_err = sw_checks()
+    mark(3)
     mv_err = mv_checks()
+    mark(4)
     bd_err = max(check_banded(12, 37, 53, 8, seed=6, ragged=True),
                  check_banded(12, 53, 37, 64, seed=7, ragged=True),
                  check_banded(16, 90, 120, 128, seed=8),
@@ -3068,6 +3532,7 @@ def main() -> int:
                  # shared memory at any length), band slides of 148-213
                  check_banded(4, 1000, 240000, 64, seed=24, lens="full"),
                  *wide_banded_checks())
+    mark(5)
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -3079,6 +3544,7 @@ def main() -> int:
         fam, fasta, work / "out", "main path", [], "cuda",
         ("gotoh_forward", "match_valid"))
     width = report["width"]
+    mark(6)
     bd_obs, brows, _ = run_msa(
         fam, fasta, work / "out_banded", "banded main path",
         ["--backend", "banded-pallas"], "cuda-banded",
@@ -3086,6 +3552,7 @@ def main() -> int:
     print(f"banded main path: {sum(x != y for x, y in zip(rows, brows))} of "
           f"{len(rows)} aligned rows differ from the main path's (widths "
           f"{len(brows[0])} and {len(rows[0])})")
+    mark(7)
 
     # search: the last N_QUERIES of N_SEQS + N_QUERIES leaves against the
     # first N_SEQS
@@ -3107,6 +3574,7 @@ def main() -> int:
     local_obs, _ = run_search(work, work / "db.fa", work / "q.fa", "local",
                               ["--score", "local", "--max-hits", "10"],
                               ("gotoh_forward",))
+    mark(8)
 
     err, timed = hold_path_calls(
         (("main path", main_obs), ("banded main path", bd_obs),
@@ -3125,20 +3593,25 @@ def main() -> int:
     mv_err = max(mv_err, e)
     print(f"match_valid at main-path shape N={N_SEQS} L={width}: "
           f"{json.dumps(mv)}")
+    mark(9)
 
-    mv_err = max(mv_err, tree_phases(fam, fasta, work))
+    mv_err = max(mv_err, tree_phases(fam, fasta, work, mark=mark))
 
-    ml_obs = ml_phases(work)
+    ml_obs = ml_phases(work, mark=mark)
     ml_run = (("ml path --tree ml", ml_obs),)
     e, _ = hold_path_calls(ml_run)
     err["gotoh_forward"] = max(err["gotoh_forward"], e["gotoh_forward"])
     mv_err = max(mv_err, hold_tree_calls(ml_run))
+    mark("16 (and the holds of 13's calls)")
 
     fa_launches, fa, fa_err = lm_phase()
+    mark(17)
 
     dist_phase(fam, work)
+    mark(18)
 
     msa_service_phase(fam, work)
+    mark(19)
 
     t20 = time.time()
     adapt = adaptive_phase(fam)
@@ -3147,6 +3620,10 @@ def main() -> int:
         err[name] = max(err[name], adapt["max_abs_err"])
     print(f"adaptive band policy and progressive baseline (phase 20): "
           f"{time.time() - t20:.1f} s")
+    mark(20)
+
+    families_phase()
+    mark(21)
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

@@ -1,5 +1,5 @@
-"""LM serving launcher on PyTorch: batched prefill + decode loop with a KV
-cache; the port of ``repro.launch.serve``.
+"""LM serving launcher on PyTorch: batched prefill + decode loop with KV/SSM
+caches; the port of ``repro.launch.serve``.
 
 This is the *language-model* serving path (one-shot benchmark of the
 ``train.serve_step`` prefill/decode step factories), not the MSA
@@ -20,10 +20,13 @@ Flags:
 
 The weights are random f32 master weights from a ``torch.Generator``
 seeded 0 (``models.transformer.init_params``), the prompt random tokens
-from one seeded 1. Prints the reference's two lines. Only the dense
-attention family is ported: an encoder-only architecture exits as in the
-reference, the MoE, SSM, hybrid and VLM ones exit naming ROADMAP.md §1
-item 14.
+from one seeded 1. Prints the reference's two lines. Every family that
+decodes from tokens is served: dense, MoE, SSM and hybrid. An
+encoder-only architecture (hubert-xlarge) exits as in the reference. A
+model that takes embeddings (qwen2-vl-2b) exits too: this launcher makes
+tokens only, and the reference's dies on it with a ``KeyError``
+(ROADMAP.md §3); the serving steps take its embeddings
+(``train.serve_step``).
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="repro_torch.launch.serve",
         description="LM serving benchmark: batched prefill + decode with "
-                    "a KV cache (PyTorch/CUDA port)")
+                    "KV/SSM caches (PyTorch/CUDA port)")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -55,15 +58,15 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
 
     from ..configs import get_arch
-    from ..models.transformer import PORTED_FAMILIES
 
     spec = get_arch(args.arch)
     cfg = spec.smoke if args.smoke else spec.config
     if not cfg.has_decode:
         raise SystemExit(f"{args.arch} is encoder-only; no decode")
-    if cfg.family not in PORTED_FAMILIES:
-        raise SystemExit(f"{args.arch}: the {cfg.family!r} family is not "
-                         "ported yet (ROADMAP.md §1 item 14)")
+    if not cfg.embed_input:
+        raise SystemExit(f"{args.arch} takes embeddings (embed_input=False), "
+                         "which this launcher does not make; drive it "
+                         "through train.serve_step with batch['embeds']")
 
     import torch
 

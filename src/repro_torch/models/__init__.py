@@ -1,4 +1,5 @@
-"""The LM (ROADMAP.md §1 item 14): the dense attention family on PyTorch.
-``layers`` (norms, RoPE, attention through the flash-attention kernel,
-gated MLPs), ``transformer`` (init, cache, apply), ``convert`` (parameters
-from the JAX package's pytree)."""
+"""The LM on PyTorch, every family of the zoo (dense, MoE, SSM, hybrid,
+VLM with M-RoPE, the audio encoder): ``layers`` (norms, RoPE / M-RoPE,
+attention through the flash-attention kernel, gated MLPs, the MoE
+block), ``mamba2`` (the SSD mixer), ``transformer`` (init, cache, apply),
+``convert`` (parameters and caches from the JAX package's pytrees)."""

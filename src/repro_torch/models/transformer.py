@@ -1,19 +1,21 @@
-"""The decoder LM on PyTorch: the port of ``repro/models/transformer.py``
-for the dense attention family (gemma-2b, qwen1.5-0.5b, llama3.2-1b,
-h2o-danube-3-4b).
+"""The decoder/encoder LM on PyTorch: the port of
+``repro/models/transformer.py`` for every family of the zoo — dense,
+MoE (kimi, moonshot), SSM (mamba2), hybrid (jamba), VLM with M-RoPE
+(qwen2-vl) and the audio encoder (hubert).
 
-Parameters are plain dicts of tensors: ``embed``, ``layers`` (one dict per
-layer: ``norm1``, ``attn``, ``norm2``, ``mlp``), ``final_norm`` and, unless
-the embeddings are tied, ``head``. The reference stacks the layers for a
-``lax.scan`` and rematerializes them; both are JAX compile matters, so the
-port runs its layers in a Python loop under ``torch.inference_mode()``.
-The cache is ``{"layers": [{"k", "v", "slot_pos"}, ...]}``, a bf16 ring
-buffer of ``min(max_len, sliding_window)`` slots per layer, written in
-place.
-
-The MoE, SSM, hybrid, VLM (M-RoPE) and audio families are not ported:
-their configs resolve, and every function here raises naming ROADMAP.md
-§1 item 14.
+Parameters are plain dicts of tensors: ``embed`` (absent where the model
+takes embeddings, ``embed_input=False``), ``layers`` (one dict per layer,
+the ``first_dense`` prefix layers first, then the groups of
+``group_pattern`` in layer order: ``norm1``, ``attn`` or ``mamba``, and
+unless the kind is ``mamba_only``, ``norm2`` and ``mlp`` or ``moe``),
+``final_norm`` and, unless the embeddings are tied, ``head``. The
+reference stacks the layers for a ``lax.scan`` and rematerializes them;
+both are JAX compile matters, so the port runs its layers in a Python loop
+under ``torch.inference_mode()``. The cache is ``{"layers": [...]}``, one
+entry a layer: an attention layer's ``{"k", "v", "slot_pos"}`` ring buffer
+of ``min(max_len, sliding_window)`` slots, written in place, or a mamba
+layer's ``{"conv", "ssm"}`` states, which a prefill or a decode step
+replaces, in the reference's types.
 """
 from __future__ import annotations
 
@@ -24,20 +26,9 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from . import layers
+from . import layers, mamba2
 
 Params = Dict[str, Any]
-
-PORTED_FAMILIES = ("dense",)
-
-
-def check_ported(cfg) -> None:
-    """Raise for a family this port does not run yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            "(ROADMAP.md §1 item 14: MoE, Mamba2/SSD, hybrid, M-RoPE/VLM "
-            "and the audio encoder)")
 
 
 def group_pattern(cfg) -> List[str]:
@@ -51,6 +42,12 @@ def group_pattern(cfg) -> List[str]:
 def n_groups(cfg) -> int:
     size = len(group_pattern(cfg))
     return (cfg.n_layers - cfg.first_dense) // size
+
+
+def layer_kinds(cfg) -> List[str]:
+    """The kind of each entry of ``params["layers"]``: the prefix's
+    ``attn`` layers, then ``group_pattern`` once a group."""
+    return ["attn"] * cfg.first_dense + group_pattern(cfg) * n_groups(cfg)
 
 
 # ------------------------------------------------------------------- init
@@ -73,12 +70,41 @@ def _init_attn(gen, cfg, dtype):
     return p
 
 
-def _init_mlp(gen, cfg, dtype):
-    D, ff = cfg.d_model, cfg.d_ff
+def _init_mlp(gen, cfg, dtype, ff: int):
+    D = cfg.d_model
     s = 1.0 / math.sqrt(D)
     return {"w_gate": _normal(gen, (D, ff), s, dtype),
             "w_up": _normal(gen, (D, ff), s, dtype),
             "w_down": _normal(gen, (ff, D), 1.0 / math.sqrt(ff), dtype)}
+
+
+def _init_moe(gen, cfg, dtype):
+    D, E, F_ = cfg.d_model, cfg.n_experts, cfg.d_ff
+    s = 1.0 / math.sqrt(D)
+    return {"router": _normal(gen, (D, E), s, dtype),
+            "w_gate": _normal(gen, (E, D, F_), s, dtype),
+            "w_up": _normal(gen, (E, D, F_), s, dtype),
+            "w_down": _normal(gen, (E, F_, D), 1.0 / math.sqrt(F_), dtype)}
+
+
+def _init_block(gen, kind: str, cfg, dtype, dense_ff: Optional[int] = None):
+    D = cfg.d_model
+    zeros = lambda: torch.zeros((D,), dtype=dtype,  # noqa: E731
+                                device=gen.device)
+    p: Params = {"norm1": zeros()}
+    if kind.startswith("attn"):
+        p["attn"] = _init_attn(gen, cfg, dtype)
+    else:
+        p["mamba"] = mamba2.init_mamba2_params(gen, cfg, dtype)
+    if kind == "mamba_only":
+        return p
+    p["norm2"] = zeros()
+    if kind.endswith("_moe"):
+        p["moe"] = _init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = _init_mlp(gen, cfg, dtype,
+                             dense_ff or cfg.d_ff_dense or cfg.d_ff)
+    return p
 
 
 def init_params(cfg, seed: int = 0, *, device="cuda",
@@ -87,18 +113,15 @@ def init_params(cfg, seed: int = 0, *, device="cuda",
     from a ``torch.Generator`` on ``device`` seeded with ``seed``. The same
     seed gives other weights than JAX's ``init_params`` (ROADMAP.md §3);
     ``convert.params_from_jax`` carries the reference's weights over."""
-    check_ported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     D, V = cfg.d_model, cfg.vocab_size
-    zeros = lambda: torch.zeros((D,), dtype=dtype, device=dev)  # noqa: E731
-    p: Params = {"embed": _normal(gen, (V, D), 0.02, dtype), "layers": []}
-    for _ in range(cfg.n_layers):
-        p["layers"].append({"norm1": zeros(),
-                            "attn": _init_attn(gen, cfg, dtype),
-                            "norm2": zeros(),
-                            "mlp": _init_mlp(gen, cfg, dtype)})
-    p["final_norm"] = zeros()
+    p: Params = {}
+    if cfg.embed_input:
+        p["embed"] = _normal(gen, (V, D), 0.02, dtype)
+    p["layers"] = [_init_block(gen, kind, cfg, dtype)
+                   for kind in layer_kinds(cfg)]
+    p["final_norm"] = torch.zeros((D,), dtype=dtype, device=dev)
     if not cfg.tie_embeddings:
         p["head"] = _normal(gen, (D, V), 0.02, dtype)
     return p
@@ -108,26 +131,72 @@ def init_params(cfg, seed: int = 0, *, device="cuda",
 
 def init_cache(cfg, batch_size: int, max_len: int, dtype=torch.bfloat16,
                device="cuda") -> Params:
-    check_ported(cfg)
     dev = resolve_device(device)
     KH, hd = cfg.n_kv_heads, cfg.head_dim
     W = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-    return {"layers": [
-        {"k": torch.zeros((batch_size, W, KH, hd), dtype=dtype, device=dev),
-         "v": torch.zeros((batch_size, W, KH, hd), dtype=dtype, device=dev),
-         "slot_pos": torch.full((batch_size, W), -1, dtype=torch.int32,
-                                device=dev)}
-        for _ in range(cfg.n_layers)]}
+
+    def attn_cache():
+        return {"k": torch.zeros((batch_size, W, KH, hd), dtype=dtype,
+                                 device=dev),
+                "v": torch.zeros((batch_size, W, KH, hd), dtype=dtype,
+                                 device=dev),
+                "slot_pos": torch.full((batch_size, W), -1,
+                                       dtype=torch.int32, device=dev)}
+
+    def mamba_cache():
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        return {"conv": torch.zeros((batch_size, cfg.d_conv - 1, conv_dim),
+                                    dtype=dtype, device=dev),
+                "ssm": torch.zeros((batch_size, cfg.ssm_heads,
+                                    cfg.ssm_head_dim, cfg.ssm_state),
+                                   dtype=torch.float32, device=dev)}
+
+    return {"layers": [attn_cache() if kind.startswith("attn")
+                       else mamba_cache() for kind in layer_kinds(cfg)]}
 
 
 # ------------------------------------------------------------------ apply
 
-def _block_apply(p: Params, h, positions, cfg, cache):
+def _block_apply(kind: str, p: Params, h, positions, cfg, cache, pos3):
+    """One layer. With a cache, one token decodes and a longer input is a
+    prefill that builds the layer's cache (the reference's
+    ``make_cache``); returns (h, new_cache or None, aux)."""
+    aux = None
     x = layers.rms_norm(h, p["norm1"], cfg.rms_eps)
-    y, nc = layers.attention_block(p["attn"], x, positions, cfg, cache=cache)
+    if kind.startswith("attn"):
+        y, nc = layers.attention_block(p["attn"], x, positions, cfg,
+                                       cache=cache, pos3=pos3)
+    elif cache is not None and h.shape[1] > 1:
+        y, nc = mamba2_prefill(p["mamba"], x, cfg)
+    else:
+        y, nc = mamba2.mamba2_block(p["mamba"], x, cfg, cache=cache)
     h = h + y
+    if kind == "mamba_only":
+        return h, nc, aux
     x = layers.rms_norm(h, p["norm2"], cfg.rms_eps)
-    return h + layers.mlp_block(p["mlp"], x, cfg.mlp), nc
+    if kind.endswith("_moe"):
+        y, aux = layers.moe_block(p["moe"], x, cfg)
+    else:
+        y = layers.mlp_block(p["mlp"], x, cfg.mlp)
+    return h + y, nc, aux
+
+
+def mamba2_prefill(p, x_normed, cfg):
+    """Prefill for SSM blocks: full SSD + final state as cache. The conv
+    state is the last K-1 conv inputs (zeros before a prompt shorter than
+    that) in the compute type, the SSM state f32, whatever ``init_cache``
+    made, as in the reference."""
+    B, S, D = x_normed.shape
+    dt_ = x_normed.dtype
+    z, conv_in, dt_raw = mamba2._in_proj(p, x_normed, cfg)
+    K = cfg.d_conv
+    pad = max(0, (K - 1) - S)
+    conv_state = F.pad(conv_in, (0, 0, pad, 0))[:, -(K - 1):]
+    conv_out, _ = mamba2._conv1d_causal(conv_in, p["conv_w"].to(dt_))
+    xh, Bm, Cm, dt, A = mamba2._ssm_inputs(p, conv_out, dt_raw, cfg, dt_)
+    y, h_last = mamba2.ssd_chunked(xh, dt, A, Bm.float(), Cm.float())
+    out = mamba2._out_proj(p, y, xh, z, cfg, dt_)
+    return out, {"conv": conv_state, "ssm": h_last}
 
 
 @torch.inference_mode()
@@ -135,15 +204,21 @@ def apply_model(params: Params, cfg, batch: Dict[str, Any], *,
                 cache: Optional[Params] = None, logits_mode: str = "all",
                 compute_dtype=torch.bfloat16
                 ) -> Tuple[torch.Tensor, Optional[Params], torch.Tensor]:
-    """Returns (logits, new_cache, aux_loss); aux_loss is 0 (no MoE).
+    """Returns (logits, new_cache, aux_loss); aux_loss is the MoE layers'
+    Switch losses summed (0 without MoE).
 
-    batch: tokens (B, S) integers, optional positions (B, S). cache =>
-    prefill (S > 1) or decode (S == 1); the cache is updated in place.
+    batch: tokens (B, S) integers, or embeds (B, S, D) where the model
+    takes embeddings; optional positions (B, S) and pos3 (3, B, S). cache
+    => prefill (S > 1) or decode (S == 1); attention caches are updated in
+    place, mamba caches replaced.
     """
-    check_ported(cfg)
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    h = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
+    if cfg.embed_input:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = F.embedding(tokens.long(), params["embed"]).to(compute_dtype)
+    else:
+        h = batch["embeds"].to(compute_dtype)
+        B, S = h.shape[:2]
     if cfg.scale_embeds:
         h = h * torch.sqrt(torch.tensor(float(cfg.d_model),
                                         dtype=torch.float32)
@@ -152,11 +227,16 @@ def apply_model(params: Params, cfg, batch: Dict[str, Any], *,
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=h.device).expand(B, S)
+    pos3 = batch.get("pos3")
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     new_layers = []
-    for i, p in enumerate(params["layers"]):
+    for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         sub_cache = cache["layers"][i] if cache is not None else None
-        h, nc = _block_apply(p, h, positions, cfg, sub_cache)
+        h, nc, aux = _block_apply(kind, p, h, positions, cfg, sub_cache,
+                                  pos3)
         new_layers.append(nc)
+        if aux is not None:
+            aux_total = aux_total + aux
     new_cache = {"layers": new_layers} if cache is not None else None
 
     h = layers.rms_norm(h, params["final_norm"], cfg.rms_eps)
@@ -168,4 +248,4 @@ def apply_model(params: Params, cfg, batch: Dict[str, Any], *,
     logits = (h @ head.to(h.dtype)).float()
     if logits_mode == "last":
         logits = logits[:, 0, :]
-    return logits, new_cache, torch.zeros((), device=h.device)
+    return logits, new_cache, aux_total

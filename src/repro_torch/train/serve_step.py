@@ -1,6 +1,8 @@
 """Serving steps on PyTorch: prefill (sequence -> last logits + cache) and
 decode (one token per call against the cache); the port of
-``repro/train/serve_step.py``. The caches live on the parameters' device.
+``repro/train/serve_step.py``, for models that take tokens or embeddings
+(``embed_input=False``: ``batch["embeds"]`` and a (B, D) row a decode
+step). The caches live on the parameters' device.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ def _device(params):
 
 def make_prefill_step(cfg, *, max_len: Optional[int] = None):
     def prefill(params, batch):
-        B, S = batch["tokens"].shape
+        x = batch["tokens"] if cfg.embed_input else batch["embeds"]
+        B, S = x.shape[:2]
         cache = init_cache(cfg, B, max_len or S, device=_device(params))
         logits, cache, _ = apply_model(params, cfg, batch, cache=cache,
                                        logits_mode="last")
@@ -26,10 +29,17 @@ def make_prefill_step(cfg, *, max_len: Optional[int] = None):
 
 
 def make_decode_step(cfg):
-    """decode(params, cache, tokens (B,), pos (B,)) -> (logits (B, V),
-    cache)."""
+    """decode(params, cache, tokens (B,) or embeds (B, D), pos (B,)) ->
+    (logits (B, V), cache). An M-RoPE model's three position streams are
+    ``pos`` each, as in the reference."""
     def decode(params, cache, token, pos):
-        batch = {"tokens": token[:, None], "positions": pos[:, None]}
+        if cfg.embed_input:
+            batch = {"tokens": token[:, None], "positions": pos[:, None]}
+        else:
+            batch = {"embeds": token[:, None, :], "positions": pos[:, None]}
+        if cfg.m_rope:
+            batch["pos3"] = pos[None, :, None].expand((3,) + pos.shape
+                                                      + (1,))
         logits, cache, _ = apply_model(params, cfg, batch, cache=cache,
                                        logits_mode="last")
         return logits, cache

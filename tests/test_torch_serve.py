@@ -11,7 +11,8 @@ atol 6e-2 (measured 4.3e-2 on values up to 3.7: the two packages round the
 first layer's bf16 output at other places, ~2^-8 relative, and that
 carries on). The
 launcher runs on ``--device cpu``, raises on ``--device cuda`` without a
-card, and refuses the families this port does not run.
+card, and refuses an encoder-only model and one that takes embeddings
+(``tests/test_torch_model_families.py`` runs the other families).
 """
 import jax
 import jax.numpy as jnp
@@ -94,9 +95,8 @@ def test_serve_and_model_entry_points_default_to_the_card(monkeypatch):
 
 
 @pytest.mark.parametrize("arch,why", [
-    ("mamba2-130m", "ROADMAP.md §1 item 14"),
-    ("kimi-k2-1t-a32b", "ROADMAP.md §1 item 14"),
     ("hubert-xlarge", "encoder-only"),
+    ("qwen2-vl-2b", "takes embeddings"),
 ])
 def test_serve_refuses_unported_families(arch, why):
     with pytest.raises(SystemExit, match=why):
