@@ -205,6 +205,35 @@ Phases, in order; any failure exits non-zero:
      one-hot and the (B, nc, nh, Q, Q) decay; kernel 5 timed at
      qwen2-vl's and hubert's prefill shapes beside its bound, its plain
      version and SDPA;
+ 22. LM training (``repro_torch.train``, ``launch/train``): (a) ``launch.
+     train --arch llama3.2-1b --batch 8 --seq 4096 --micro 4 --steps 4``
+     at the published config (random f32 weights, seed 0; bf16 compute;
+     every layer rematerialized): every loss and grad norm finite, the
+     first loss within [ln V - 0.1, ln V + 1.0], kernel 5 launched 128
+     times a step (16 layers x 4 microbatches, forward and remat's
+     recompute); each step's ms, loss and grad norm, tokens/s, model
+     FLOPs a step against 989 TFLOP/s, the device peak above the 16
+     bytes a parameter of state, and one ``torch.profiler`` step's share
+     of device time in the attention backward; then the same command at 2
+     of the 16 layers with ``--ckpt-dir <work> --ckpt-every 2``,
+     ``--resume`` to 6 steps from the step-4 checkpoint and an
+     uninterrupted 6-step run, under deterministic algorithms: the
+     resumed step-5 loss the uninterrupted run's within 1e-5 (at 16
+     layers a checkpoint is 14.8 GB, and its 5 writes, 74 GB, would be
+     the script's largest disk load by far); (b) f32
+     gradients on the card against the port's CPU path: llama3.2-1b at
+     full width cut to 2 layers, 1 x 1,024 tokens, and one
+     ``make_train_step`` step (2 microbatches) of each family's smoke
+     config (danube, gemma, kimi, mamba2, jamba, qwen2-vl on embeddings
+     with M-RoPE positions, hubert): each leaf within 1e-4 of its norm,
+     losses within 1e-5; (c) one bf16 step (2 x 2,048 tokens, 2
+     microbatches) of each non-dense family at phase 21's published
+     width, cut as ``TRAIN_FAMILY_RUNS`` says to keep 16 bytes a
+     parameter under 40 GB: step ms, peak, kernel-5 launches, the MoE's
+     dropped picks, finite losses; then kernel 5 timed at llama3.2-1b's
+     training shape (2 x 32 x 4,096 x 64, KH 8, causal, bf16) beside its
+     bound, its plain version and SDPA, and the chunked attention
+     backward beside SDPA's backward;
  each phase prints its seconds on a line of its own; then print each
  kernel on its own path as one JSON line.
 
@@ -3475,6 +3504,483 @@ def families_phase(device="cuda", smoke=False):
     return rows
 
 
+# ---------------------------------------------------------------- LM training
+
+# phase 22 (a): launch.train on llama3.2-1b at its published config (16
+# layers, d 2,048, GQA 32/8 of 64, d_ff 8,192, vocab 128,256, tied), the
+# reference's train_4k shape (4,096 tokens) with its 4-way microbatching
+TRAIN_ARCH = "llama3.2-1b"
+TRAIN_ARGS = ("--batch", "8", "--seq", "4096", "--micro", "4")
+TRAIN_SMOKE_ARGS = ("--batch", "4", "--seq", "64", "--micro", "2")
+TRAIN_STEPS, TRAIN_RESUMED, TRAIN_CKPT_EVERY = 4, 6, 2
+# the checkpoints of a full-depth run (14.8 GB of params, m and v each, 5
+# writes for 4 steps every 2 and a resume to 6: 74 GB) would outgrow the
+# disk writes a machine with one card can take within the script's run:
+# the resume is held at the same shape on llama3.2-1b cut to 2 layers
+# (4.6 GB a checkpoint, 23 GB in all)
+TRAIN_RESUME_LAYERS = 2
+TRAIN_RESUME_ARCH = "llama3.2-1b-2-layers"
+# the first loss within [ln V - 0.1, ln V + 1.0]: at init the tied head's
+# logits have variance ~ d * 0.02^2 (the final norm starts at zero), so
+# ~ln V + 0.41
+FIRST_LOSS_BAND = (-0.1, 1.0)
+RESUME_ATOL = 1e-5
+# (b) card against CPU at f32: the norm of each gradient (or updated
+# state) leaf's difference within 1e-4 of the CPU leaf's norm; losses
+# within 1e-5 of the CPU's, relative
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_CPU_CUT = ("llama3.2-1b", dict(n_layers=2), 1, 1024)
+TRAIN_SMOKE_FAMILIES = ("h2o-danube-3-4b", "gemma-2b", "kimi-k2-1t-a32b",
+                        "mamba2-130m", "jamba-1.5-large-398b",
+                        "qwen2-vl-2b", "hubert-xlarge")
+# (c) one bf16 step a non-dense family at the published width of phase
+# 21's config, 2 x 2,048 tokens in 2 microbatches; each cut keeps weights,
+# gradients and Adam state (16 bytes a parameter) under 40 GB:
+# (arch, cuts, why)
+TRAIN_FAMILY_RUNS = (
+    ("moonshot-v1-16b-a3b", dict(n_layers=2),
+     "2 of 48 layers: 1.81 B parameters, 29.0 GB (48: 7.5 B per 12)"),
+    ("qwen2-vl-2b", {}, "full depth: 1.54 B, 24.7 GB"),
+    ("jamba-1.5-large-398b",
+     dict(n_layers=2, attn_period=2, d_ff=4096, n_experts=2),
+     "one mamba layer and one attention-MoE layer (the 8-layer group cut "
+     "to 2: one mamba layer of d_inner 16,384 is 0.40 B), d_ff 24,576 -> "
+     "4,096 and 2 of 16 experts (top-2)"),
+    ("kimi-k2-1t-a32b", dict(n_layers=2, n_experts=8, vocab_size=32768),
+     "the dense prefix layer and one MoE layer of 8 of 384 experts (top-8)"
+     "; vocabulary 163,840 -> 32,768 (the untied embedding and head alone "
+     "are 2.35 B parameters, 37.6 GB)"),
+    ("mamba2-130m", {}, "full depth: 0.13 B"),
+    ("hubert-xlarge", {}, "full depth: 1.26 B, 20.1 GB"),
+)
+TRAIN_FAMILY_SHAPE = (2, 2048, 2)          # batch, sequence, microbatches
+
+
+def train_flops(cfg, B: int, S: int, micro: int) -> dict:
+    """Model FLOPs of one training step: 6·N·tokens for the products of
+    the layers and the head (N excludes the embedding lookup), remat's
+    extra forward of the layers (2·N_layers·tokens), and causal attention
+    (4·D a query-key pair forward, twice that backward, once more for
+    remat), for a dense model."""
+    D, V, L = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    n_layers = cfg.param_count() - V * D * (1 if cfg.tie_embeddings else 2)
+    n_head = V * D
+    tokens = B * S
+    pairs = S * (S + 1) // 2 if cfg.causal else S * S
+    attn_fwd = 4 * cfg.head_dim * pairs * cfg.n_heads * B * L
+    out = dict(dense=6 * (n_layers + n_head) * tokens,
+               remat=2 * n_layers * tokens, attention=4 * attn_fwd)
+    out["total"] = sum(out.values())
+    return out
+
+
+def train_run(argv, device: str, smoke: bool):
+    """``launch.train.main(argv)`` with kernel 5's count reset just before
+    it; returns (result, launches, seconds, device peak)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import train
+    argv = list(argv) + (["--smoke", "--device", device] if smoke else [])
+    run_start()
+    ops.launches = 0
+    t0 = time.time()
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    return res, ops.launches, time.time() - t0, device_peak()
+
+
+def train_profile(cfg, args, device: str, step_ms: float) -> dict:
+    """One training step at the full run's shape under ``torch.profiler``:
+    the device time of the kernels inside the attention backward's range
+    against the step's kernel time, and that against ``step_ms`` (an
+    unprofiled step's wall time: the profiler slows the host)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.train import batch_for
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_state, make_train_step
+    B, S, micro = (int(args[i]) for i in (1, 3, 5))
+    run_start()
+    state = init_state(cfg, 0, device=device)
+    step = make_train_step(cfg, AdamWConfig(), microbatches=micro)
+    batch = batch_for(0, B, S, cfg.vocab_size, device)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.profiler.profile(activities=acts) as prof:
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = prof.key_averages()
+    cpu = torch.autograd.DeviceType.CPU
+    # kernels only (the profiler table's "Self CUDA time total"); the
+    # backward's range as the kernels launched inside it (its CPU-side
+    # event; the GPU-side annotation spans gaps too)
+    dev_total = sum(e.self_device_time_total for e in ev
+                    if e.device_type != cpu and
+                    not getattr(e, "is_user_annotation", False)) / 1e3
+    bwd = sum(e.device_time_total for e in ev
+              if e.key == ops.BWD_RANGE and e.device_type == cpu) / 1e3
+    del state
+    return dict(profiled_step_wall_ms=round(wall, 3),
+                device_ms=round(dev_total, 3),
+                attention_backward_device_ms=round(bwd, 3),
+                attention_backward_share_of_device=(
+                    round(bwd / dev_total, 4) if dev_total else None),
+                device_busy_share_of_step=(round(dev_total / step_ms, 4)
+                                           if dev_total else None))
+
+
+def train_full_run(device="cuda", smoke=False) -> dict:
+    """Phase 22 (a), the full-width run: ``launch.train`` at the published
+    config, 4 steps, kernel 5's launches counted over the run; then one
+    profiled step."""
+    import gc
+
+    from repro_torch.configs import get_arch
+    spec = get_arch(TRAIN_ARCH)
+    cfg = spec.smoke if smoke else spec.config
+    args = TRAIN_SMOKE_ARGS if smoke else TRAIN_ARGS
+    B, S, micro = (int(args[i]) for i in (1, 3, 5))
+    res, launches, secs, peak = train_run(
+        ["--arch", TRAIN_ARCH, *args, "--steps", str(TRAIN_STEPS)], device,
+        smoke)
+    del res["state"]
+    gc.collect()
+    hist = res["history"]
+    for h in hist:
+        print(f"train {cfg.name} step {h['step']}: {h['ms']:.1f} ms, loss "
+              f"{h['loss']:.6f}, grad_norm {h['grad_norm']:.4f}, lr "
+              f"{h['lr']:.3g}, {B * S / h['ms'] * 1e3:.0f} tokens/s")
+    n = cfg.param_count()
+    state_bytes = 16 * n
+    fl = train_flops(cfg, B, S, micro)
+    ms = float(np.median([h["ms"] for h in hist[1:]]))
+    row = dict(layers=cfg.n_layers, batch=B, seq=S, micro=micro,
+               params=n, step_ms=round(ms, 3),
+               first_step_ms=round(hist[0]["ms"], 3),
+               tokens_per_s=round(B * S / ms * 1e3, 1),
+               model_tflop_per_step=round(fl["total"] / 1e12, 3),
+               flops=fl, mfu=round(fl["total"] / (ms / 1e3)
+                                   / BF16_OPS_PER_S, 4),
+               peak_gib=round(peak / 2 ** 30, 3),
+               peak_above_state_gib=round((peak - state_bytes) / 2 ** 30, 3),
+               state_gib=round(state_bytes / 2 ** 30, 3),
+               flash_launches_per_step=launches / TRAIN_STEPS,
+               run_s=round(secs, 2), first_loss=hist[0]["loss"],
+               ln_vocab=round(math.log(cfg.vocab_size), 6))
+    print(f"train {cfg.name} {' '.join(args)}: {json.dumps(row)}")
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in hist):
+        fail(f"train: a non-finite loss or grad norm: {hist}")
+    lo, hi = FIRST_LOSS_BAND
+    ln_v = math.log(cfg.vocab_size)
+    if not ln_v + lo <= hist[0]["loss"] <= ln_v + hi:
+        fail(f"train: first loss {hist[0]['loss']} outside [ln V {lo:+}, "
+             f"ln V {hi:+}] (ln V = {ln_v:.4f})")
+    want = 2 * cfg.n_layers * micro          # forward + remat's recompute
+    if not smoke and launches != want * TRAIN_STEPS:
+        fail(f"train: flash_attention launched {launches} times in "
+             f"{TRAIN_STEPS} steps, not {want} a step (every attention "
+             "layer's forward and its recompute)")
+    prof = train_profile(cfg, args, device, ms)
+    row.update(prof)
+    print(f"train {cfg.name} one profiled step: {json.dumps(prof)}")
+    return row
+
+
+def train_resume_check(work: Path, device="cuda", smoke=False) -> dict:
+    """Phase 22 (a), checkpoints: ``launch.train`` at the full run's shape
+    on llama3.2-1b cut to ``TRAIN_RESUME_LAYERS`` layers (registered as
+    ``TRAIN_RESUME_ARCH``), 4 steps with a checkpoint every 2, a resume
+    to 6 and an uninterrupted 6-step run, under deterministic algorithms
+    (the card then repeats itself): the resumed step-5 loss must be the
+    uninterrupted run's."""
+    import dataclasses
+    import gc
+    import shutil
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchSpec, register
+    spec = get_arch(TRAIN_ARCH)
+    cfg = spec.smoke if smoke else dataclasses.replace(
+        spec.config, n_layers=TRAIN_RESUME_LAYERS)
+    register(TRAIN_RESUME_ARCH, ArchSpec(cfg, spec.smoke))
+    args = TRAIN_SMOKE_ARGS if smoke else TRAIN_ARGS
+    micro = int(args[5])
+    ckpt = work / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--arch", TRAIN_RESUME_ARCH, *args]
+    saves = ["--ckpt-dir", str(ckpt), "--ckpt-every", str(TRAIN_CKPT_EVERY)]
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    runs = {}
+    try:
+        for label, argv in (
+                ("first", ["--steps", str(TRAIN_STEPS)] + saves),
+                ("resumed", ["--steps", str(TRAIN_RESUMED)] + saves
+                 + ["--resume"]),
+                ("plain", ["--steps", str(TRAIN_RESUMED)])):
+            res, launches, secs, _ = train_run(base + argv, device, smoke)
+            del res["state"]
+            gc.collect()
+            runs[label] = (res["history"], launches, secs)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    files = sorted(p.name for p in ckpt.iterdir())
+    size = sum(p.stat().st_size for p in ckpt.iterdir())
+    shutil.rmtree(ckpt, ignore_errors=True)
+    first, resumed, plain = (runs[k][0] for k in ("first", "resumed",
+                                                  "plain"))
+    r5, u5 = resumed[-1], plain[TRAIN_RESUMED - 1]
+    row = dict(layers=cfg.n_layers, params=cfg.param_count(),
+               first_s=round(runs["first"][2], 2),
+               resumed_s=round(runs["resumed"][2], 2),
+               plain_s=round(runs["plain"][2], 2),
+               first_steps_ms=[round(h["ms"], 3) for h in first],
+               resumed_steps_ms=[round(h["ms"], 3) for h in resumed],
+               plain_steps_ms=[round(h["ms"], 3) for h in plain],
+               checkpoints=files, checkpoint_gib=round(size / len(files)
+                                                       / 2 ** 30, 3),
+               resumed_step5_loss=r5["loss"], plain_step5_loss=u5["loss"],
+               launches=[runs[k][1] for k in ("first", "resumed", "plain")])
+    print(f"train {cfg.name} ({TRAIN_RESUME_LAYERS} layers) checkpoints "
+          f"and resume: {json.dumps(row)}")
+    every = first + resumed + plain
+    if not all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+               for h in every):
+        fail(f"train: a non-finite loss or grad norm: {every}")
+    if [h["step"] for h in resumed] != [4, 5] or \
+            abs(r5["loss"] - u5["loss"]) > RESUME_ATOL:
+        fail(f"train: the resumed run's step-5 loss {r5['loss']} is not "
+             f"the uninterrupted run's {u5['loss']} (steps "
+             f"{[h['step'] for h in resumed]})")
+    want = 2 * cfg.n_layers * micro
+    if not smoke and [runs[k][1] for k in ("first", "resumed", "plain")] \
+            != [want * TRAIN_STEPS, want * 2, want * TRAIN_RESUMED]:
+        fail(f"train: flash_attention launches {row['launches']}, not "
+             f"{want} a step")
+    return row
+
+
+def train_loss_grads(params, cfg, batch):
+    """f32 loss and the gradient of every leaf (flatten order)."""
+    import torch
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import loss_fn
+    live = [p.detach().requires_grad_() for p in topt.tree_leaves(params)]
+    with torch.enable_grad():
+        total, _ = loss_fn(topt.tree_unflatten(params, live), cfg, batch,
+                           compute_dtype=torch.float32)
+        total.backward()
+    return float(total.detach()), [p.grad for p in live]
+
+
+def leaf_errors(card, cpu) -> float:
+    """The largest ``||card - cpu|| / ||cpu||`` over the leaves (a
+    leaf whose CPU norm is 0 must be 0 on the card too)."""
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        a = a.detach().float().cpu()
+        b = b.detach().float()
+        d, nb = float((a - b).norm()), float(b.norm())
+        worst = max(worst, d / nb if nb else (0.0 if d == 0 else math.inf))
+    return worst
+
+
+def to_device(tree, device):
+    from repro_torch.train import optimizer as topt
+    return topt.tree_map(lambda t: t.to(device), tree)
+
+
+def train_card_vs_cpu(device="cuda", smoke=False) -> dict:
+    """Phase 22 (b): llama3.2-1b at full width cut to 2 layers, 1 x 1,024
+    tokens, and one ``make_train_step`` step of each family's smoke
+    config, f32, on the card against the port's CPU path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import init_state, make_train_step
+    out = {}
+    arch, cuts, B, S = TRAIN_CPU_CUT
+    spec = get_arch(arch)
+    cfg = spec.smoke if smoke else dataclasses.replace(spec.config, **cuts)
+    if smoke:
+        B, S = 2, 48
+    t0 = time.time()
+    params = tt.init_params(cfg, 0, device="cpu")
+    batch = family_batch(cfg, B, S, "cpu")
+    batch["labels"] = batch["tokens"]
+    cpu_loss, cpu_grads = train_loss_grads(params, cfg, batch)
+    t_cpu = time.time() - t0
+    card_loss, card_grads = train_loss_grads(to_device(params, device), cfg,
+                                             to_device(batch, device))
+    err = leaf_errors(card_grads, cpu_grads)
+    lerr = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    out[arch] = dict(layers=cfg.n_layers, tokens=B * S, loss_cpu=cpu_loss,
+                     loss_card=card_loss, loss_rel_err=lerr,
+                     worst_leaf_rel_err=err, cpu_s=round(t_cpu, 2))
+    print(f"train grads card vs cpu {cfg.name} ({json.dumps(cuts)}, "
+          f"{B} x {S}, f32): {json.dumps(out[arch])}")
+    if not (err <= TRAIN_GRAD_RTOL and lerr <= TRAIN_LOSS_RTOL):
+        fail(f"train: {cfg.name}'s card gradients or loss differ from the "
+             f"CPU's: leaf {err} (bound {TRAIN_GRAD_RTOL}), loss {lerr} "
+             f"(bound {TRAIN_LOSS_RTOL})")
+    del params, cpu_grads, card_grads
+    for arch in TRAIN_SMOKE_FAMILIES:
+        cfg = get_arch(arch).smoke
+        batch = family_batch(cfg, 4, 32, "cpu", seed=3)
+        g = torch.Generator().manual_seed(4)
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (4, 32),
+                                        generator=g)
+        res = {}
+        for dev in ("cpu", device):
+            state = to_device(init_state(cfg, 0, device="cpu"), dev)
+            step = make_train_step(cfg, topt.AdamWConfig(lr=1e-3),
+                                   microbatches=2,
+                                   compute_dtype=torch.float32)
+            res[dev] = step(state, to_device(batch, dev))
+        (s_cpu, m_cpu), (s_card, m_card) = res["cpu"], res[device]
+        err = max(leaf_errors(topt.tree_leaves(a), topt.tree_leaves(b))
+                  for a, b in ((s_card.params, s_cpu.params),
+                               (s_card.opt.m, s_cpu.opt.m),
+                               (s_card.opt.v, s_cpu.opt.v)))
+        lerr = abs(float(m_card["loss"]) - float(m_cpu["loss"])) / \
+            abs(float(m_cpu["loss"]))
+        out[arch] = dict(loss_cpu=float(m_cpu["loss"]),
+                         loss_card=float(m_card["loss"]),
+                         loss_rel_err=lerr, worst_leaf_rel_err=err,
+                         grad_norm_cpu=float(m_cpu["grad_norm"]),
+                         grad_norm_card=float(m_card["grad_norm"]))
+        print(f"train step card vs cpu {cfg.name} (smoke, 4 x 32, 2 "
+              f"microbatches, f32): {json.dumps(out[arch])}")
+        if not (err <= TRAIN_GRAD_RTOL and lerr <= TRAIN_LOSS_RTOL):
+            fail(f"train: {cfg.name}'s step on the card differs from the "
+                 f"CPU's: leaf {err}, loss {lerr}")
+    return out
+
+
+def train_family_steps(device="cuda", smoke=False) -> dict:
+    """Phase 22 (c): one bf16 ``make_train_step`` step of each non-dense
+    family at phase 21's published width, cut as ``TRAIN_FAMILY_RUNS``
+    says."""
+    import gc
+
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import init_state, make_train_step
+    rows = {}
+    B, S, micro = TRAIN_FAMILY_SHAPE
+    if smoke:
+        S = 40
+    for arch, cuts, why in TRAIN_FAMILY_RUNS:
+        cfg = family_cfg(arch, cuts, smoke)
+        run_start()
+        state = init_state(cfg, 0, device=device)
+        base = run_start()
+        batch = family_batch(cfg, B, S, device)
+        g = torch.Generator(device=device).manual_seed(6)
+        batch["labels"] = torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=g, device=device)
+        step = make_train_step(cfg, topt.AdamWConfig(), microbatches=micro)
+        torch.cuda.synchronize()
+        ops.launches = 0
+        with DropWatch() as drops:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        launches = ops.launches
+        n_attn = sum(k.startswith("attn") for k in tt.layer_kinds(cfg))
+        row = dict(cuts=cuts, params=cfg.param_count(), batch=B, seq=S,
+                   micro=micro, step_ms=round(ms, 3),
+                   loss=float(m["loss"]), aux=float(m["aux"]),
+                   grad_norm=float(m["grad_norm"]),
+                   peak_gib=round((device_peak() - base) / 2 ** 30, 3),
+                   state_gib=round(base / 2 ** 30, 3),
+                   flash_launches=launches)
+        if cfg.n_experts:
+            row.update(moe_dropped=drops.count(), moe_picks=drops.picks)
+        print(f"train step {cfg.name} bf16 ({why}): {json.dumps(row)}")
+        rows[arch] = row
+        if not all(math.isfinite(row[k]) for k in ("loss", "aux",
+                                                    "grad_norm")):
+            fail(f"train: {arch}'s step gave a non-finite loss: {row}")
+        want = 2 * n_attn * micro
+        if not smoke and launches != want:
+            fail(f"train: {arch}'s step launched flash_attention {launches}"
+                 f" times, not {want} (forward and recompute of each "
+                 "attention layer, each microbatch)")
+        del state, m, batch
+        gc.collect()
+    return rows
+
+
+def time_flash_backward(B=2, S=4096, H=32, KH=8, D=64) -> dict:
+    """The attention backward at llama3.2-1b's training shape: the chunked
+    recompute against SDPA's backward (its forward + backward less its
+    forward), bf16 inputs."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    q, k, v = flash_inputs(B, S, H, KH, D, torch.bfloat16, seed=98)
+    g = torch.randn(q.shape, device="cuda").bfloat16()
+    kw = dict(scale=D ** -0.5, causal=True, window=0)
+    ms, _ = cuda_ms(lambda: ops.attention_backward(q, k, v, g, **kw))
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              scale=kw["scale"],
+                                              enable_gqa=True)
+
+    def sdpa_fb():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), gt)
+    fwd_ms, _ = cuda_ms(sdpa)
+    fb_ms, _ = cuda_ms(sdpa_fb)
+    row = dict(backward_ms=ms, sdpa_fwd_ms=fwd_ms, sdpa_fwd_bwd_ms=fb_ms,
+               sdpa_bwd_ms=fb_ms - fwd_ms)
+    print(f"attention backward at llama3.2-1b's training shape {B}x{H}x{S}"
+          f"x{D} (KH {KH}, causal, bf16): {json.dumps(row)}")
+    return row
+
+
+def train_phase(work: Path, device="cuda", smoke=False) -> dict:
+    """Phase 22: the LM's training path (see the module docstring)."""
+    import gc
+
+    import torch
+    rows = {"full": train_full_run(device, smoke)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["resume"] = train_resume_check(work, device, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["card_vs_cpu"] = train_card_vs_cpu(device, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows["families"] = train_family_steps(device, smoke)
+    gc.collect()
+    torch.cuda.empty_cache()
+    if device == "cuda":
+        rows["flash"], _ = time_flash(2, 4096, 32, 8, 64, True, 0,
+                                      label="llama3.2-1b's training shape")
+        rows["backward"] = time_flash_backward()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3624,6 +4130,9 @@ def main() -> int:
 
     families_phase()
     mark(21)
+
+    train_phase(work)
+    mark(22)
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

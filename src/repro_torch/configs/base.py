@@ -6,9 +6,10 @@ architecture file under repro_torch/configs instantiates exactly one
 ModelConfig plus its reduced smoke-test variant.
 
 The port's own copy of ``repro/configs`` (pure data, field for field), so
-that ``get_arch`` resolves every name without the JAX package. ``remat``,
-``remat_policy`` and ``unroll_layers`` are kept for the schema's sake: they
-steer JAX's compiler and nothing in the port reads them.
+that ``get_arch`` resolves every name without the JAX package. ``remat``
+checkpoints each layer of a training pass (``models/transformer.py``);
+``remat_policy`` and ``unroll_layers`` are kept for the schema's sake:
+they steer JAX's compiler and nothing in the port reads them.
 """
 from __future__ import annotations
 

@@ -86,7 +86,9 @@ def _unflatten(like, it):
     if isinstance(like, dict):
         return {k: _unflatten(like[k], it) for k in sorted(like)}
     if isinstance(like, (list, tuple)):
-        return type(like)(_unflatten(item, it) for item in like)
+        items = [_unflatten(item, it) for item in like]
+        return type(like)(*items) if hasattr(like, "_fields") \
+            else type(like)(items)
     host = next(it)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(host).to(like.device)

@@ -21,6 +21,7 @@ CLIS = [
     "repro_torch.launch.search_run",
     "repro_torch.launch.serve_msa",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
 ]
 
 OUT = Path(__file__).resolve().parents[1] / "CLI.md"

@@ -33,6 +33,8 @@ from __future__ import annotations
 import argparse
 import time
 
+import torch
+
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -50,6 +52,7 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+@torch.inference_mode()
 def main(argv=None):
     """Run the benchmark; returns a dict with the generated ``tokens``
     (B, gen), the last ``logits`` (B, V) and ``prefill_ms`` /
@@ -67,8 +70,6 @@ def main(argv=None):
         raise SystemExit(f"{args.arch} takes embeddings (embed_input=False), "
                          "which this launcher does not make; drive it "
                          "through train.serve_step with batch['embeds']")
-
-    import torch
 
     from ..device import resolve_device, sync
     from ..models.transformer import init_params

@@ -14,6 +14,12 @@ that takes embeddings has no ``"embed"``.
 (``init_cache`` or a prefill's), and ``cache_to_numpy`` returns a port
 cache as one dict of numpy arrays a layer, so that the two packages'
 caches compare layer by layer.
+
+``train_state_from_jax`` carries the reference's ``TrainState`` (params,
+``OptState(m, v, count)``, step; numpy leaves) into the port's
+``train_step.TrainState``: m and v have the params' structure and are
+unstacked the same way. ``train_state_to_numpy`` returns a port state
+with numpy leaves, in the port's per-layer layout.
 """
 from __future__ import annotations
 
@@ -23,6 +29,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..train.optimizer import OptState, tree_map
+from ..train.train_step import TrainState
 from .transformer import group_pattern, n_groups
 
 
@@ -73,8 +81,28 @@ def cache_from_jax(tree: Dict[str, Any], cfg, device="cuda"
 def cache_to_numpy(cache: Dict[str, Any]) -> List[Dict[str, np.ndarray]]:
     """A port cache -> one dict of numpy arrays a layer (bf16 entries as
     f32, which holds them exactly)."""
-    def arr(t):
-        t = t.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return [{k: arr(v) for k, v in layer.items()}
+    return [{k: _numpy(v) for k, v in layer.items()}
             for layer in cache["layers"]]
+
+
+def _numpy(t) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_from_jax(state, cfg, device="cuda"):
+    """The reference's ``TrainState`` (numpy leaves) -> the port's on
+    ``device``."""
+    dev = resolve_device(device)
+    params, (m, v, count), step = state
+    return TrainState(params_from_jax(params, cfg, dev),
+                      OptState(params_from_jax(m, cfg, dev),
+                               params_from_jax(v, cfg, dev),
+                               _tensors(count, None, dev)),
+                      _tensors(step, None, dev))
+
+
+def train_state_to_numpy(state):
+    """A port ``TrainState`` -> the same structure with numpy leaves (bf16
+    as f32, which holds it exactly)."""
+    return tree_map(_numpy, state)

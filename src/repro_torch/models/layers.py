@@ -7,10 +7,13 @@ attention (``xla_flash``) goes through the flash-attention kernel
 (``csrc/flash_attention.cu``) on a CUDA tensor and through its plain
 version, the reference's blocked online-softmax schedule, on a CPU tensor;
 it is the function the reference computes in XLA and that the TPU kernel
-implements, so the port adds no switch. Decode attention over the ring
-cache is plain PyTorch, as in the reference. So is ``moe_block``, which
-the reference computes in XLA too; it builds its dispatch from indices
-instead of the reference's (T, E, C) one-hot tensors (ROADMAP.md §3).
+implements, so the port adds no switch. Its gradient is a recompute in
+plain PyTorch, chunked over query blocks (``ops.attention_backward``),
+where the reference differentiates its XLA scan. Decode attention over
+the ring cache is plain PyTorch, as in the reference. So is
+``moe_block``, which the reference computes in XLA too; it builds its
+dispatch from indices instead of the reference's (T, E, C) one-hot
+tensors (ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -80,9 +83,11 @@ def xla_flash(q, k, v, *, scale: float, causal: bool, window: int,
 
     q: (B, S, H, D); k/v: (B, T, KH, D). Returns (B, S, H, D).
     q_offset: absolute position of q[0] (prefill continuation support).
+    Differentiable: the backward recomputes in query blocks
+    (``ops.attention_backward``).
     """
-    return flash_ops.attention(q, k, v, scale=scale, causal=causal,
-                               window=window, q_offset=q_offset)
+    return flash_ops.flash_attention_lm(q, k, v, scale=scale, causal=causal,
+                                        window=window, q_offset=q_offset)
 
 
 def decode_attention(q, k_cache, v_cache, slot_pos, cur_pos, *, scale: float,

@@ -9,13 +9,18 @@ the ``first_dense`` prefix layers first, then the groups of
 ``group_pattern`` in layer order: ``norm1``, ``attn`` or ``mamba``, and
 unless the kind is ``mamba_only``, ``norm2`` and ``mlp`` or ``moe``),
 ``final_norm`` and, unless the embeddings are tied, ``head``. The
-reference stacks the layers for a ``lax.scan`` and rematerializes them;
-both are JAX compile matters, so the port runs its layers in a Python loop
-under ``torch.inference_mode()``. The cache is ``{"layers": [...]}``, one
-entry a layer: an attention layer's ``{"k", "v", "slot_pos"}`` ring buffer
-of ``min(max_len, sliding_window)`` slots, written in place, or a mamba
-layer's ``{"conv", "ssm"}`` states, which a prefill or a decode step
-replaces, in the reference's types.
+reference stacks the layers for a ``lax.scan``, a JAX compile matter: the
+port runs its layers in a Python loop. Where a gradient is recorded and
+``cfg.remat`` is set (the default), each layer runs under
+``torch.utils.checkpoint`` and is recomputed in the backward pass, as the
+reference's ``jax.checkpoint`` recomputes each scanned group; PyTorch has
+no ``dots`` save policy, so every ``remat_policy`` recomputes the whole
+layer, which gives the same values (ROADMAP.md §3). The serving steps run
+under ``torch.inference_mode()`` (``train/serve_step.py``). The cache is
+``{"layers": [...]}``, one entry a layer: an attention layer's ``{"k",
+"v", "slot_pos"}`` ring buffer of ``min(max_len, sliding_window)`` slots,
+written in place, or a mamba layer's ``{"conv", "ssm"}`` states, which a
+prefill or a decode step replaces, in the reference's types.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers, mamba2
@@ -199,7 +205,23 @@ def mamba2_prefill(p, x_normed, cfg):
     return out, {"conv": conv_state, "ssm": h_last}
 
 
-@torch.inference_mode()
+def _records_grad(h, p) -> bool:
+    """Whether autograd records the layer: grad mode on and its input or
+    one of its weights needs a gradient."""
+    if not torch.is_grad_enabled():
+        return False
+    if h.requires_grad:
+        return True
+    stack = [p]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, torch.Tensor) and x.requires_grad:
+            return True
+    return False
+
+
 def apply_model(params: Params, cfg, batch: Dict[str, Any], *,
                 cache: Optional[Params] = None, logits_mode: str = "all",
                 compute_dtype=torch.bfloat16
@@ -210,7 +232,9 @@ def apply_model(params: Params, cfg, batch: Dict[str, Any], *,
     batch: tokens (B, S) integers, or embeds (B, S, D) where the model
     takes embeddings; optional positions (B, S) and pos3 (3, B, S). cache
     => prefill (S > 1) or decode (S == 1); attention caches are updated in
-    place, mamba caches replaced.
+    place, mamba caches replaced. Without a cache the call is
+    differentiable; with ``cfg.remat`` each layer whose work autograd
+    records is checkpointed.
     """
     if cfg.embed_input:
         tokens = batch["tokens"]
@@ -232,8 +256,12 @@ def apply_model(params: Params, cfg, batch: Dict[str, Any], *,
     new_layers = []
     for i, (kind, p) in enumerate(zip(layer_kinds(cfg), params["layers"])):
         sub_cache = cache["layers"][i] if cache is not None else None
-        h, nc, aux = _block_apply(kind, p, h, positions, cfg, sub_cache,
-                                  pos3)
+        if cfg.remat and cache is None and _records_grad(h, p):
+            h, nc, aux = checkpoint(_block_apply, kind, p, h, positions, cfg,
+                                    None, pos3, use_reentrant=False)
+        else:
+            h, nc, aux = _block_apply(kind, p, h, positions, cfg, sub_cache,
+                                      pos3)
         new_layers.append(nc)
         if aux is not None:
             aux_total = aux_total + aux

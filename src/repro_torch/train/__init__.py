@@ -1,2 +1,2 @@
-"""Serving steps of the LM (``serve_step``) for every family; training is
-not ported yet (ROADMAP.md §1 item 14)."""
+"""Training of the LM (``optimizer``, ``train_step``) and its serving steps
+(``serve_step``) for every family."""

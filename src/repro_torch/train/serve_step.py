@@ -2,7 +2,9 @@
 decode (one token per call against the cache); the port of
 ``repro/train/serve_step.py``, for models that take tokens or embeddings
 (``embed_input=False``: ``batch["embeds"]`` and a (B, D) row a decode
-step). The caches live on the parameters' device.
+step). The caches live on the parameters' device. The steps and
+``greedy_generate`` run under ``torch.inference_mode()``: they record no
+gradient.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ def _device(params):
 
 
 def make_prefill_step(cfg, *, max_len: Optional[int] = None):
+    @torch.inference_mode()
     def prefill(params, batch):
         x = batch["tokens"] if cfg.embed_input else batch["embeds"]
         B, S = x.shape[:2]
@@ -32,6 +35,7 @@ def make_decode_step(cfg):
     """decode(params, cache, tokens (B,) or embeds (B, D), pos (B,)) ->
     (logits (B, V), cache). An M-RoPE model's three position streams are
     ``pos`` each, as in the reference."""
+    @torch.inference_mode()
     def decode(params, cache, token, pos):
         if cfg.embed_input:
             batch = {"tokens": token[:, None], "positions": pos[:, None]}
@@ -46,6 +50,7 @@ def make_decode_step(cfg):
     return decode
 
 
+@torch.inference_mode()
 def greedy_generate(cfg, params, prompt_tokens, *, steps: int, max_len: int):
     """Reference generation loop for the examples/tests (prefill + N
     decodes) -> (B, steps) int32 tokens."""

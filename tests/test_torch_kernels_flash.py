@@ -9,7 +9,10 @@ rounding of the output, ~4e-3 relative, on values up to ~3), gradients
 through the ``autograd.Function`` atol 1e-4. The LM-layout entry
 (``ops.attention``, with ``q_offset`` and T != S) is held against the
 reference's ``models.layers.xla_flash`` at ragged lengths, where the
-kernel masks a short last tile.
+kernel masks a short last tile. Its differentiable twin
+(``ops.flash_attention_lm``, the chunked recompute backward
+``ops.attention_backward``) is held against ``jax.vjp`` of ``xla_flash``
+at atol 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -166,3 +169,117 @@ def test_three_bf16_terms_hold_p_exactly():
     rel1 = (terms[0] - p).abs()[normal] / p[normal]
     assert float(rel2.max()) <= 2.0 ** -17
     assert float(rel1.max()) > 2.0 ** -10
+
+
+# (B, S, T, H, KH, D, causal, window, q_offset, block) of the LM-layout
+# autograd entry: causal, sliding window, GQA, MQA (KH = 1), no mask, a
+# ragged last query block (S % block != 0) and a continued prefill
+LM_GRAD_CASES = [
+    (2, 64, 64, 4, 2, 16, True, 0, 0, 16),
+    (2, 70, 70, 4, 2, 8, True, 12, 0, 16),          # window, ragged
+    (1, 50, 50, 8, 1, 16, True, 0, 0, 16),          # MQA, ragged
+    (1, 45, 45, 4, 4, 8, False, 0, 0, 32),          # encoder, ragged
+    (2, 33, 33, 6, 2, 8, False, 7, 0, 8),           # window, not causal
+    (1, 20, 60, 4, 2, 8, True, 16, 40, 8),          # q_offset 40
+]
+
+
+def _lm_qkv(seed, B, S, T, H, KH, D):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(0, 1, (B, S, H, D)).astype(np.float32),
+            rng.normal(0, 1, (B, T, KH, D)).astype(np.float32),
+            rng.normal(0, 1, (B, T, KH, D)).astype(np.float32),
+            rng.normal(0, 1, (B, S, H, D)).astype(np.float32))
+
+
+@pytest.mark.parametrize("B,S,T,H,KH,D,causal,window,q_offset,block",
+                         LM_GRAD_CASES)
+def test_lm_layout_gradients_match_xla_flash_vjp(B, S, T, H, KH, D, causal,
+                                                 window, q_offset, block,
+                                                 monkeypatch):
+    """``flash_attention_lm``'s forward and its chunked recompute backward
+    against ``jax.vjp`` of the reference's ``xla_flash`` (JAX
+    differentiates its scan), f32, atol 2e-5 / 1e-5 on each gradient (the
+    same f32 products summed in another order)."""
+    q, k, v, g = _lm_qkv(S * 7 + T, B, S, T, H, KH, D)
+    kw = dict(scale=D ** -0.5, causal=causal, window=window,
+              q_offset=q_offset)
+    out, vjp = jax.vjp(lambda *a: jlayers.xla_flash(*a, **kw),
+                       *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(g))
+    monkeypatch.setattr(ops, "BWD_BLOCK", block)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = ops.flash_attention_lm(tq, tk, tv, **kw)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out),
+                               atol=2e-5)
+    got.backward(torch.from_numpy(g))
+    for t, w in zip((tq, tk, tv), want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), atol=1e-5)
+
+
+def test_lm_layout_gradients_bf16_in_input_types():
+    q, k, v, g = _lm_qkv(2, 1, 40, 40, 4, 2, 16)
+    tb = [torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    out = ops.flash_attention_lm(*tb, scale=0.25, causal=True, window=0)
+    assert out.dtype == torch.bfloat16
+    out.backward(torch.from_numpy(g).bfloat16())
+    f32 = [x.detach().float().requires_grad_() for x in tb]
+    ref.attention_ref(*(x.transpose(1, 2) for x in f32), scale=0.25,
+                      causal=True).transpose(1, 2).backward(
+        torch.from_numpy(g).bfloat16().float())
+    for t, w in zip(tb, f32):
+        assert t.grad.dtype == torch.bfloat16
+        # the f32 gradient rounded once to bf16
+        np.testing.assert_allclose(t.grad.float().numpy(), w.grad.numpy(),
+                                   rtol=2 ** -8, atol=1e-6)
+
+
+def test_chunked_backward_equal_at_two_block_sizes():
+    """Blocks of 16 and 64 queries reach other key ranges (masked keys add
+    exact zeros) and sum in other products: equal within 2e-6 (measured:
+    9.5e-7 on dv)."""
+    q, k, v, g = map(torch.from_numpy, _lm_qkv(4, 2, 90, 90, 4, 2, 16))
+    kw = dict(scale=0.25, causal=True, window=30)
+    a = ops.attention_backward(q, k, v, g, block=16, **kw)
+    b = ops.attention_backward(q, k, v, g, block=64, **kw)
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=2e-6, atol=2e-6)
+
+
+def test_chunked_backward_largest_tensor_is_one_block():
+    """Nothing of (B, H, S, T) is made: the largest tensor the backward
+    allocates holds (B, H, block, T) f32 elements."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                if isinstance(t, torch.Tensor):
+                    Largest.numel = max(Largest.numel,
+                                        t.untyped_storage().nbytes() // 4)
+            return out
+
+    B, S, H, KH, D, block = 2, 256, 8, 2, 16, 32
+    q, k, v, g = map(torch.from_numpy, _lm_qkv(5, B, S, S, H, KH, D))
+    with Largest():
+        ops.attention_backward(q, k, v, g, scale=0.25, causal=False,
+                               window=0, block=block)
+    assert Largest.numel == B * H * block * S
+    # causal: a block reaches the keys up to its last query only
+    Largest.numel = 0
+    with Largest():
+        ops.attention_backward(q, k, v, g, scale=0.25, causal=True,
+                               window=0, block=block)
+    assert Largest.numel == B * H * block * S
+
+
+def test_differentiable_entries_launch_nothing_on_the_cpu():
+    q, k, v, g = _lm_qkv(6, 1, 24, 24, 4, 2, 8)
+    launches = ops.launches
+    tq = torch.from_numpy(q).requires_grad_()
+    ops.flash_attention_lm(tq, torch.from_numpy(k), torch.from_numpy(v),
+                           scale=0.3, causal=True).sum().backward()
+    assert tq.grad is not None and ops.launches == launches
