@@ -78,7 +78,8 @@ Phases, in order; any failure exits non-zero:
      each run prints its kernel-2 launches by route;
  13. run ``msa_run --tree ml`` (auto backend, here cluster, plus ML
      refinement at its defaults: model auto, 150 Adam steps, 8 NNI
-     rounds) on 512 sequences (cut from 1,024 to make room for phase 21)
+     rounds) on 384 sequences (cut from 1,024 to make room for phases 21
+     and 23)
      simulated with Phi_DNA's parameters
      (mitochondrial-like: root_len 2,048, branch_sub 0.002, branch_indel
      0.0002): kernels 1 and 2 launched, a registry model, final logL >=
@@ -92,7 +93,7 @@ Phases, in order; any failure exits non-zero:
  14. ``tree_run --refine ml --bootstrap 100`` on phase 13's alignment:
      every internal non-trivial edge with a finite support in [0, 1], the
      Newick with its labels; print bootstrap seconds and replicates/s;
- 15. the tree-search fleet (4 starts, radius 3, 12 rounds) on 128 of
+ 15. the tree-search fleet (4 starts, radius 3, 4 rounds) on 128 of
      phase 13's rows, as shipped (the searcher turns on deterministic
      algorithms itself): uninterrupted, killed at round 2 by a non-StepFailure error, resumed;
      the resumed tree and Newick bitwise equal to the uninterrupted run's;
@@ -177,7 +178,7 @@ Phases, in order; any failure exits non-zero:
      timed beside their bounds and plain versions, with registers and
      spill bytes; each run's wall seconds, device peak, buckets, calls,
      fallbacks and launches; (b) ``progressive_msa`` on the card on the
-     Table 4 protein family (16 x 459) and on 128 of phase 6's sequences:
+     Table 4 protein family (16 x 459) and on 64 of phase 6's sequences:
      rows decode to their inputs; seconds and avg SP beside
      ``center_star_msa`` on the same family;
  21. the LM's other families (random f32 weights, seed 0; bf16 compute
@@ -234,6 +235,24 @@ Phases, in order; any failure exits non-zero:
      training shape (2 x 32 x 4,096 x 64, KH 8, causal, bf16) beside its
      bound, its plain version and SDPA, and the chunked attention
      backward beside SDPA's backward;
+ 23. the production mesh (``models/sharding_plan``, ``launch/steps``,
+     ``launch/dryrun``): (a) ``launch.train --mesh 2x2`` on four spawned
+     ``gloo`` ranks sharing the card (collectives through gloo's own,
+     ``sharding_plan.collectives``), llama3.2-1b at its published width
+     cut to 2 of 16 layers, ``--batch 8 --seq 1024 --micro 2 --steps 3``,
+     beside a 1x1 run of the same flags here: losses within rtol 1e-4,
+     leaf by leaf Adam's first moment within ``MESH_M_RTOL`` of 1x1's and
+     the parameters within ``MESH_P_RATIO`` of 1x1's update (in norm),
+     each rank's local bytes of parameters and Adam moments the plan's
+     arithmetic, kernel 5 launched on every rank; each rank's parameter
+     elements, device peak and step ms (four ranks share one card: no
+     speed figure); (b) ``launch.dryrun`` of llama3.2-1b train_4k on the
+     pod mesh and kimi-k2-1t-a32b decode_32k on the multipod mesh, each
+     at ``--device cuda`` and ``--device cpu`` in subprocesses started
+     after phase 22's timed and profiled steps (they use the CPU only,
+     beside the rest of phase 22 and phase 23 (a)): the two records equal in
+     every byte, FLOP and collective count, 4,894,720 and 2,002,147,840 parameters a rank
+     (the latter reconciled with the reference's 2,013,760,000);
  each phase prints its seconds on a line of its own; then print each
  kernel on its own path as one JSON line.
 
@@ -1442,8 +1461,9 @@ def tree_phases(fam, fasta: Path, work: Path, n_big: int = N_BIG,
 
 # ----------------------------------------------------------------- ML paths
 
-N_ML = 512             # msa_run --tree ml: Phi_DNA's shape (cut from 1,024)
+N_ML = 384             # msa_run --tree ml: Phi_DNA's shape (cut from 1,024)
 N_FLEET = 128          # the tree-search fleet (cut from 256: PERF.md)
+FLEET_ROUNDS = 4       # its move rounds (cut from the searcher's 12: PERF.md)
 N_BOOT = 100           # tree_run --bootstrap
 ML_STAGES = ("map1", "assemble", "write", "score", "tree.distance",
              "tree.medoids", "tree.assign", "tree.cluster_nj", "tree.stitch",
@@ -1652,10 +1672,11 @@ def fleet_phase(msa, names, work: Path, card: str = "cuda") -> None:
     if torch.are_deterministic_algorithms_enabled():
         fail("deterministic algorithms are on before the fleet runs")
     clean, _, _ = fleet_run(msa, "uninterrupted", card,
-                            ckpt_dir=str(work / "fleet_clean"))
+                            ckpt_dir=str(work / "fleet_clean"),
+                            rounds=FLEET_ROUNDS)
     try:
         fleet_run(msa, "killed", card, ckpt_dir=str(work / "fleet_killed"),
-                  failure_hook=kill)
+                  failure_hook=kill, rounds=FLEET_ROUNDS)
         fail("the fleet's failure hook did not stop the run")
     except RuntimeError as e:
         if "killed at round 2" not in str(e):
@@ -1663,7 +1684,7 @@ def fleet_phase(msa, names, work: Path, card: str = "cuda") -> None:
         print("fleet killed at round 2 (a non-StepFailure error)")
     resumed, _, _ = fleet_run(msa, "resumed", card,
                               ckpt_dir=str(work / "fleet_killed"),
-                              resume=True)
+                              resume=True, rounds=FLEET_ROUNDS)
     if torch.are_deterministic_algorithms_enabled():
         fail("the searcher left deterministic algorithms on")
     nwk = [treeio.to_newick(r.children, r.blen, r.root, names)
@@ -2580,7 +2601,8 @@ N_ADAPT = 4096          # phase 20's pairs: partial reads against full targets
 ADAPT_BAND = 64
 ADAPT_READ = (400, 1440)   # query lengths (partial 16S reads)
 ADAPT_SAMPLE = 3        # pairs of each bucket held against the plain versions
-N_PROG = 128            # progressive_msa on Phi_RNA sequences
+N_PROG = 64             # progressive_msa on Phi_RNA sequences (cut from
+                        # 128: PERF.md)
 # W = 16,384 timed where the planner gives it: short reads (90-110 nt)
 # against 8,192-nt targets at band 128 (|la - lb| + 128 > 8,192)
 WIDE_READS = dict(pairs=1024, read=(90, 110), target=8192, band=128)
@@ -3957,12 +3979,16 @@ def time_flash_backward(B=2, S=4096, H=32, KH=8, D=64) -> dict:
     return row
 
 
-def train_phase(work: Path, device="cuda", smoke=False) -> dict:
-    """Phase 22: the LM's training path (see the module docstring)."""
+def train_phase(work: Path, device="cuda", smoke=False,
+                after_timed=None) -> dict:
+    """Phase 22: the LM's training path (see the module docstring);
+    ``after_timed()`` runs once its timed and profiled steps are done."""
     import gc
 
     import torch
     rows = {"full": train_full_run(device, smoke)}
+    if after_timed is not None:
+        after_timed()
     gc.collect()
     torch.cuda.empty_cache()
     rows["resume"] = train_resume_check(work, device, smoke)
@@ -3979,6 +4005,354 @@ def train_phase(work: Path, device="cuda", smoke=False) -> dict:
                                       label="llama3.2-1b's training shape")
         rows["backward"] = time_flash_backward()
     return rows
+
+
+# ----------------------------------------------------- the production mesh
+
+# phase 23 (a): launch.train --mesh 2x2 on four gloo ranks sharing the
+# card, llama3.2-1b at its published width cut to 2 of its 16 layers,
+# beside a 1x1 run of the same flags in this process
+MESH_ARCH = "llama3.2-1b-2-layers-mesh"
+MESH_LAYERS = 2
+MESH_ARGS = ("--batch", "8", "--seq", "1024", "--micro", "2", "--steps", "3")
+MESH_SMOKE_ARGS = ("--batch", "4", "--seq", "24", "--micro", "2",
+                   "--steps", "3")
+MESH = "2x2"
+MESH_TIMEOUT = 300
+# losses within rtol 1e-4 of 1x1 (the CPU test's bound, tests/
+# test_torch_launch_train.py). The state is held leaf by leaf where a
+# fault of the sharded backward (a gradient's sum over the data ranks
+# left out, a partial sum taken as whole) shows: Adam's first moment
+# after the 3 steps (a sum of the steps' clipped gradients) within
+# MESH_M_RTOL of 1x1's in norm, and each parameter leaf's distance from
+# 1x1's within MESH_P_RATIO of 1x1's own update (p_3 - p_0) in norm. The
+# limits lie between the sound run's readings (0.020 and 0.050 on an
+# H100) and three planted faults' (0.82 and 0.92 at the least, smoke
+# width on the CPU; PERF.md §6, PR 25). The CPU test's per-element bound (one learning
+# rate a step) is printed beside the largest element difference and not
+# held: AdamW's first steps move an element by ~lr · the sign of its
+# gradient, and at full width some gradients are smaller than the bf16
+# rounding in which the model-axis ranks' partial sums differ from 1x1's
+# one product, so those elements step the other way (up to 2·lr a step)
+MESH_LOSS_RTOL = 1e-4
+MESH_M_RTOL = 0.1
+MESH_P_RATIO = 0.2
+# (b) two dry-run cells, each at --device cuda and --device cpu: the
+# parameters a rank of the port's plan. llama's is the reference's plan's
+# too; the reference's plan gives kimi-k2 2,013,760,000 on 2 x 16 x 16:
+# its rule reads the stacked (1, 7168, 18432) dense prefix MLP as an MoE
+# weight and splits it over the 32 data ranks only, where the port's
+# per-layer rule splits its F over the model axis as well
+DRYRUN_CELLS = (("llama3.2-1b", "train_4k", "pod", 4_894_720),
+                ("kimi-k2-1t-a32b", "decode_32k", "multipod",
+                 2_002_147_840))
+KIMI_REFERENCE_PARAMS = 2_013_760_000
+KIMI_PREFIX_MLP = 3 * 7168 * 18432
+DRYRUN_TIMEOUT = 300
+DRYRUN_KEYS = ("argument_size_in_bytes", "output_size_in_bytes",
+               "temp_size_in_bytes", "flops_per_device",
+               "bytes_accessed_per_device", "collective_bytes_per_device",
+               "collective_counts", "collective_bytes_by_computation",
+               "params_per_device", "microbatches")
+
+
+def mesh_cfg(smoke: bool):
+    """Phase 23's model, registered as ``MESH_ARCH``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ArchSpec, register
+    spec = get_arch(TRAIN_ARCH)
+    cfg = spec.smoke if smoke else dataclasses.replace(
+        spec.config, n_layers=MESH_LAYERS)
+    register(MESH_ARCH, ArchSpec(cfg, spec.smoke))
+    return cfg
+
+
+def mesh_rank(rank: int, n: int, work: str, device: str,
+              smoke: bool) -> None:
+    """A spawned rank of phase 23 (a): ``gloo`` from a ``FileStore``, the
+    card shared; runs ``launch.train --mesh 2x2`` and writes its numbers
+    (and rank 0 the state's distances from the 1x1 run's,
+    ``mesh_vs_one``) to ``work / f"mesh_rank{rank}.json"``."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    work = Path(work)
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    else:
+        for f in ("synchronize", "reset_peak_memory_stats"):
+            setattr(torch.cuda, f, lambda *a, **k: None)
+        for f in ("max_memory_allocated", "memory_allocated"):
+            setattr(torch.cuda, f, lambda *a, **k: 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // n))
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(str(work / "mesh_store"), n),
+        rank=rank, world_size=n, timeout=timedelta(seconds=MESH_TIMEOUT))
+    try:
+        from repro_torch.kernels.flash_attention import ops
+        from repro_torch.launch import train
+        from repro_torch.models import sharding_plan as sp
+        from repro_torch.train import optimizer as topt
+        cfg = mesh_cfg(smoke)
+        args = MESH_SMOKE_ARGS if smoke else MESH_ARGS
+        torch.cuda.reset_peak_memory_stats()
+        ops.launches = 0
+        t0 = time.time()
+        res = train.main(["--arch", MESH_ARCH, *args, "--mesh", MESH,
+                          "--device", device])
+        secs = time.time() - t0
+        st, plan = res["state"], res["plan"]
+        local = [sp.local_bytes(t) for t in (st.params, st.opt.m,
+                                             st.opt.v)]
+        planned = [sp.planned_bytes(t, plan.param_specs, plan.mesh)
+                   for t in (st.params, st.opt.m, st.opt.v)]
+        elems = sum(t.to_local().numel()
+                    for t in topt.tree_leaves(st.params))
+        held = mesh_vs_one(st, torch.load(work / "mesh_1x1.pt", mmap=True,
+                                          weights_only=True))
+        row = dict(rank=rank, param_elements=elems, local_bytes=local,
+                   planned_bytes=planned,
+                   peak_gib=round(torch.cuda.max_memory_allocated()
+                                  / 2 ** 30, 3),
+                   steps_ms=[round(h["ms"], 3) for h in res["history"]],
+                   losses=[h["loss"] for h in res["history"]],
+                   lr=[h["lr"] for h in res["history"]],
+                   flash_launches=ops.launches, run_s=round(secs, 2),
+                   collectives=sp.collective_route(plan.mesh),
+                   params=cfg.param_count())
+        if rank == 0:
+            row.update(held)
+    finally:
+        dist.destroy_process_group()
+    (work / f"mesh_rank{rank}.json").write_text(json.dumps(row))
+
+
+def _ratio(num_sq: float, den: float) -> float:
+    """sqrt(num_sq) / den (0 where both are 0)."""
+    num = math.sqrt(num_sq)
+    return num / den if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def mesh_vs_one(state, one) -> dict:
+    """A rank's shard of the mesh's parameters and Adam first moments
+    against the same block of 1x1's (``one``: ``params``, ``m`` and
+    ``update``, each leaf's ||p_3 - p_0||, leaves in flatten order); the
+    sums of squares are added over the ranks (each block once, by the
+    replicas' first rank) and the largest element difference taken over
+    them, so every rank joins. -> the worst leaf of each relative
+    distance (``mesh_train``'s bounds) and that largest difference."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import sharding_plan as sp
+    from repro_torch.train import optimizer as topt
+
+    def sq(t):
+        return torch.linalg.vector_norm(t, dtype=torch.float64).item() ** 2
+    ps, ms = topt.tree_leaves(state.params), topt.tree_leaves(state.opt.m)
+    sums = torch.zeros(len(ps), 3, dtype=torch.float64)
+    top = torch.zeros(1, dtype=torch.float64)
+    for i, (p, m, p1, m1) in enumerate(zip(ps, ms, one["params"],
+                                           one["m"])):
+        dmesh = p.device_mesh
+        coord = dmesh.get_coordinate()
+        if any(c and not pl.is_shard() for c, pl in zip(coord,
+                                                       p.placements)):
+            continue                        # a replica's first rank counts
+        size, off = sp.local_box(p.shape, dmesh.shape, coord, p.placements)
+        box = tuple(slice(o, o + n) for o, n in zip(off, size))
+        m1 = m1[box].to(p.device)
+        dp = p.to_local().float() - p1[box].to(p.device)
+        sums[i] = torch.tensor([sq(dp), sq(m.to_local() - m1), sq(m1)])
+        top[0] = max(float(top[0]), float(dp.abs().max()))
+    dist.all_reduce(sums)
+    dist.all_reduce(top, op=dist.ReduceOp.MAX)
+    m_rel = [_ratio(a, math.sqrt(c)) for _, a, c in sums.tolist()]
+    p_rel = [_ratio(a, u) for (a, _, _), u in zip(sums.tolist(),
+                                                  one["update"])]
+    worst_m, worst_p = int(np.argmax(m_rel)), int(np.argmax(p_rel))
+    return dict(m_rel_max=m_rel[worst_m],
+                m_rel_leaf=[worst_m, list(ps[worst_m].shape)],
+                p_rel_max=p_rel[worst_p],
+                p_rel_leaf=[worst_p, list(ps[worst_p].shape)],
+                param_max_abs_diff=float(top[0]))
+
+
+def dryrun_start(work: Path, smoke: bool) -> list:
+    """Phase 23 (b): the dry-run cells, each at --device cuda and cpu, in
+    subprocesses started together (``--device cpu`` twice when
+    rehearsing without a card)."""
+    procs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for arch, shape, mesh, _ in DRYRUN_CELLS:
+        for dev in ("cuda", "cpu"):
+            out = work / f"dryrun_{arch}_{shape}_{mesh}_{dev}.json"
+            out.unlink(missing_ok=True)
+            cmd = [sys.executable, "-W", "ignore", "-m",
+                   "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+                   shape, "--mesh", mesh, "--device",
+                   "cpu" if smoke else dev, "--out", str(out)]
+            log = open(work / f"{out.stem}.log", "w")
+            procs.append(((arch, shape, mesh, dev), out, log,
+                          subprocess.Popen(cmd, env=env, stdout=log,
+                                           stderr=subprocess.STDOUT)))
+    return procs
+
+
+def dryrun_finish(procs, t0: float) -> dict:
+    """Wait for the dry-run cells (each within ``DRYRUN_TIMEOUT`` of the
+    phase's start) and hold them: the cuda record equal to the cpu one in
+    every byte count, FLOP count and collective, the parameters a rank
+    the plan's."""
+    recs = {}
+    for key, out, log, proc in procs:
+        try:
+            proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.time() - t0)))
+        except subprocess.TimeoutExpired:
+            for *_, p in procs:
+                p.kill()
+            fail(f"dryrun {key} ran past {DRYRUN_TIMEOUT} s")
+        log.close()
+        if proc.returncode != 0:
+            tail = Path(log.name).read_text()[-2000:]
+            fail(f"dryrun {key} exited {proc.returncode}:\n{tail}")
+        recs[key] = json.loads(out.read_text())[0]
+    rows = {}
+    for arch, shape, mesh, want in DRYRUN_CELLS:
+        a, b = (recs[(arch, shape, mesh, d)] for d in ("cuda", "cpu"))
+        diff = [k for k in DRYRUN_KEYS if a[k] != b[k]]
+        row = {k: a[k] for k in DRYRUN_KEYS}
+        row.update(lower_s_cuda=a["lower_s"], lower_s_cpu=b["lower_s"])
+        print(f"dryrun {arch} {shape} --mesh {mesh} (fake world, rank 0): "
+              f"{json.dumps(row)}")
+        if diff:
+            fail(f"dryrun {arch} {shape}: --device cuda and cpu differ in "
+                 f"{diff}")
+        if a["params_per_device"] != want:
+            fail(f"dryrun {arch} {shape}: {a['params_per_device']} "
+                 f"parameters a rank, the plan gives {want}")
+        rows[f"{arch} {shape} {mesh}"] = row
+    n = DRYRUN_CELLS[1][3]
+    print(f"kimi-k2 parameters a rank on 2 x 16 x 16: {n:,} (the port's "
+          f"plan) = {KIMI_REFERENCE_PARAMS:,} (the reference's) - "
+          f"{KIMI_PREFIX_MLP // 32 - KIMI_PREFIX_MLP // 512:,} (its dense "
+          "prefix MLP over 32 ranks there, over 512 here)")
+    if n != KIMI_REFERENCE_PARAMS - (KIMI_PREFIX_MLP // 32 -
+                                     KIMI_PREFIX_MLP // 512):
+        fail("kimi-k2's parameters a rank do not reconcile with the "
+             "reference's")
+    return rows
+
+
+def mesh_phase(work: Path, device="cuda", smoke=False, procs=None) -> dict:
+    """Phase 23: the production mesh (module doc); ``procs`` are its
+    dry-run subprocesses where the caller started them earlier
+    (``dryrun_start``), and none outlives the phase."""
+    t0 = time.time()
+    if procs is None:
+        procs = dryrun_start(work, smoke)
+    try:
+        return _mesh_phase(work, device, smoke, procs, t0)
+    finally:
+        stop(procs)
+
+
+def stop(procs) -> None:
+    """Kill the dry-run subprocesses still running."""
+    for *_, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+
+
+def _mesh_phase(work: Path, device, smoke, procs, t0) -> dict:
+    rows = mesh_train(work, device, smoke, t0)
+    rows["dryrun"] = dryrun_finish(procs, t0)
+    print(f"phase 23 (production mesh): {time.time() - t0:.1f} s")
+    return rows
+
+
+def mesh_train(work: Path, device, smoke, t0) -> dict:
+    """Phase 23 (a): the 1x1 run here, then the 2x2 world, held against
+    it (``MESH_LOSS_RTOL``, ``MESH_M_RTOL``, ``MESH_P_RATIO``)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.train import optimizer as topt
+    from repro_torch.train.train_step import init_state
+    if dist.is_initialized():
+        fail("phase 23 needs no process group in this process")
+    cfg = mesh_cfg(smoke)
+    args = MESH_SMOKE_ARGS if smoke else MESH_ARGS
+    res, launches, secs, peak = train_run(
+        ["--arch", MESH_ARCH, *args, "--device", device], device, False)
+    one = res["history"]
+    p0 = topt.tree_leaves(init_state(cfg, 0, device=device).params)
+    p3 = topt.tree_leaves(res["state"].params)
+    update = [float(torch.linalg.vector_norm(a - b)) for a, b in zip(p3, p0)]
+    torch.save({"params": [t.cpu() for t in p3],
+                "m": [t.cpu() for t in topt.tree_leaves(res["state"].opt.m)],
+                "update": update}, work / "mesh_1x1.pt")
+    del res, p0, p3
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"train {cfg.name} 1x1 {' '.join(args)}: steps ms "
+          f"{[round(h['ms'], 3) for h in one]}, losses "
+          f"{[h['loss'] for h in one]}, peak {peak / 2 ** 30:.3f} GiB, "
+          f"flash launches {launches}, {secs:.1f} s")
+    (work / "mesh_store").unlink(missing_ok=True)
+    n = 4
+    ctx = mp.start_processes(mesh_rank, args=(n, str(work), device, smoke),
+                             nprocs=n, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.time() - t0 > MESH_TIMEOUT:
+                fail(f"the {MESH} world ran past {MESH_TIMEOUT} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"a rank of the {MESH} world failed:\n{e}")
+    except mp.ProcessExitedException as e:
+        fail(f"a rank of the {MESH} world exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [json.loads((work / f"mesh_rank{r}.json").read_text())
+             for r in range(n)]
+    (work / "mesh_1x1.pt").unlink(missing_ok=True)
+    for r in ranks:
+        print(f"train {cfg.name} --mesh {MESH} rank {r['rank']}: "
+              f"{r['param_elements']:,} parameter elements of "
+              f"{r['params']:,}, device peak {r['peak_gib']} GiB, steps ms "
+              f"{r['steps_ms']} (four ranks share one card and gloo "
+              "moves their collectives through the host: no speed "
+              f"figure), kernel-5 launches {r['flash_launches']}, "
+              f"collectives {r['collectives']}")
+        if r["local_bytes"] != r["planned_bytes"]:
+            fail(f"rank {r['rank']} holds {r['local_bytes']} bytes of "
+                 f"params, m and v; the plan gives {r['planned_bytes']}")
+        if not smoke and r["flash_launches"] == 0:
+            fail(f"rank {r['rank']}: kernel 5 not launched")
+    r0 = ranks[0]
+    loss_err = max(abs(a - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(r0["losses"], one))
+    print(f"train --mesh {MESH} against 1x1: losses {r0['losses']} vs "
+          f"{[h['loss'] for h in one]} (worst rel {loss_err:.3g}, bound "
+          f"{MESH_LOSS_RTOL}); Adam's m, worst leaf "
+          f"{r0['m_rel_leaf']}: {r0['m_rel_max']:.4g} of its norm (bound "
+          f"{MESH_M_RTOL}); parameters, worst leaf {r0['p_rel_leaf']}: "
+          f"{r0['p_rel_max']:.4g} of 1x1's update (bound {MESH_P_RATIO}); "
+          f"largest element difference {r0['param_max_abs_diff']:.3g} "
+          f"(not held: the CPU test's one lr a step is "
+          f"{sum(r0['lr']):.3g})")
+    if loss_err > MESH_LOSS_RTOL or r0["m_rel_max"] > MESH_M_RTOL or \
+            r0["p_rel_max"] > MESH_P_RATIO:
+        fail(f"train --mesh {MESH} differs from 1x1 past the bounds")
+    return {"ranks": ranks, "one": [h["ms"] for h in one]}
 
 
 def main() -> int:
@@ -4131,8 +4505,17 @@ def main() -> int:
     families_phase()
     mark(21)
 
-    train_phase(work)
-    mark(22)
+    # phase 23's dry runs use the CPU only: they start once phase 22's
+    # timed and profiled steps are done, beside the rest of its work
+    dry = []
+    try:
+        train_phase(work, after_timed=lambda: dry.extend(
+            dryrun_start(work, smoke=False)))
+        mark(22)
+        mesh_phase(work, procs=dry)
+        mark(23)
+    finally:
+        stop(dry)
 
     kernels = [
         dict(name="gotoh_forward", route="cuda",

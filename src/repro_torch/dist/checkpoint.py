@@ -9,7 +9,14 @@ the other way round. Every write goes through ``atomic_save_npz``.
 Retention keeps the newest ``keep`` steps. ``restore`` walks newest-to-oldest past
 unreadable or mismatched files. Given a ``mesh``, only its rank 0 writes,
 and every rank waits at a barrier until the write is done (all ranks
-hold the same state and read the same files).
+read the same files). A sharded tree (DTensor leaves, ``models/
+sharding_plan``) is saved as its full arrays: each DTensor leaf is
+gathered (``full_tensor``, a collective every rank joins) and rank 0
+writes the same ``step_*.npz`` as an unsharded run; ``restore(like,
+shardings)`` distributes each leaf by ``shardings`` (a ``sharding_plan.
+Shardings`` of the tree's specs) or, without it, by the placements of
+``like``'s leaf, so a checkpoint saved on one mesh restores on a mesh of
+another shape, or on none.
 """
 from __future__ import annotations
 
@@ -78,9 +85,15 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+def _dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def _unflatten(like, it):
     """``like``'s structure with its leaves taken from ``it`` in flatten
-    order; a torch leaf comes back as a tensor on its device."""
+    order; a torch leaf comes back as a tensor on its device, a DTensor
+    leaf distributed as it is."""
     if like is None:
         return None
     if isinstance(like, dict):
@@ -90,15 +103,34 @@ def _unflatten(like, it):
         return type(like)(*items) if hasattr(like, "_fields") \
             else type(like)(items)
     host = next(it)
+    if _dtensor(like):
+        from torch.distributed.tensor import distribute_tensor
+        return distribute_tensor(torch.from_numpy(host).to(like.device),
+                                 like.device_mesh, like.placements,
+                                 src_data_rank=None)
     if isinstance(like, torch.Tensor):
         return torch.from_numpy(host).to(like.device)
     return host
 
 
 def _to_host(x) -> np.ndarray:
+    if _dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.array(x)
+
+
+def _plain(tree):
+    """``tree`` with each DTensor leaf's local tensor (a template for
+    ``_unflatten``: the structure and devices only)."""
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        items = [_plain(x) for x in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else type(tree)(items)
+    return tree.to_local() if _dtensor(tree) else tree
 
 
 class CheckpointManager:
@@ -134,17 +166,18 @@ class CheckpointManager:
         reads the directory while it changes, so every rank sees the same
         steps."""
         if self.mesh is None:
-            return self._write(step, tree)
+            return self._write(step, [_to_host(x) for x in _leaves(tree)])
+        # every rank gathers (a collective), rank 0 writes
+        host = [_to_host(x) for x in _leaves(tree)]
         self.mesh.barrier()
         if self.mesh.rank == 0:
-            self._write(step, tree)
+            self._write(step, host)
         self.mesh.barrier()
 
-    def _write(self, step: int, tree):
+    def _write(self, step: int, host):
         t0 = time.perf_counter()
         path = self._path(step)
-        atomic_save_npz(path, {f"leaf_{i}": _to_host(x)
-                               for i, x in enumerate(_leaves(tree))})
+        atomic_save_npz(path, {f"leaf_{i}": x for i, x in enumerate(host)})
         _H_WRITE.observe(time.perf_counter() - t0)
         _C_WRITES.inc()
         _C_BYTES.inc(path.stat().st_size)
@@ -162,21 +195,27 @@ class CheckpointManager:
 
     # --------------------------------------------------------------- restore
 
-    def restore(self, like, step: Optional[int] = None):
+    def restore(self, like, shardings=None, step: Optional[int] = None):
         """Load into the structure of ``like``; returns ``(tree, step)``.
 
         With ``step=None`` the newest readable checkpoint wins; unreadable
         or structurally mismatched files are skipped with a warning.
+        ``shardings`` (a ``sharding_plan.Shardings`` of ``like``'s
+        structure) distributes each leaf by its spec (module doc).
         """
         leaves = _leaves(like)
         candidates = [step] if step is not None else self.all_steps()[::-1]
         for s in candidates:
-            host = self._read(s, shapes=[np.shape(x) for x in leaves],
+            host = self._read(s, shapes=[tuple(x.shape) if hasattr(
+                x, "shape") else np.shape(x) for x in leaves],
                               strict=step is not None)
             if host is None:
                 continue
             _C_RESTORES.inc()
-            return _unflatten(like, iter(host)), s
+            if shardings is None:
+                return _unflatten(like, iter(host)), s
+            tree = _unflatten(_plain(like), iter(host))
+            return shardings(tree), s
         raise FileNotFoundError(
             f"no restorable checkpoint in {self.dir} "
             f"(requested step={step}, present={self.all_steps()})")

@@ -97,14 +97,18 @@ class ResilientLoop:
     ``failure_hook(step)`` (tests, chaos injection) runs before each step
     and may raise ``StepFailure``; any other exception ends the run (a
     kill), after which ``run(..., resume=True)`` continues from the
-    newest checkpoint.
+    newest checkpoint. ``state_shardings`` (a ``sharding_plan.Shardings``
+    of the state) is forwarded to every restore, so a replayed or resumed
+    state lands back on the mesh.
     """
 
     def __init__(self, step_fn: Callable, ckpt: CheckpointManager, *,
                  ckpt_every: int = 100,
                  failure_hook: Optional[Callable[[int], None]] = None,
-                 max_failures: Optional[int] = None):
+                 max_failures: Optional[int] = None,
+                 state_shardings=None):
         self.step_fn = step_fn
+        self.state_shardings = state_shardings
         self.ckpt = ckpt
         self.ckpt_every = ckpt_every
         self.failure_hook = failure_hook
@@ -115,7 +119,8 @@ class ResilientLoop:
         n_steps = int(batches.n_steps)
         step = 0
         if resume and self.ckpt.all_steps():
-            state, step = self.ckpt.restore(state)
+            state, step = self.ckpt.restore(
+                state, shardings=self.state_shardings)
         failures = 0
         while step < n_steps:
             if self.ckpt_every and step % self.ckpt_every == 0:
@@ -133,7 +138,8 @@ class ResilientLoop:
                     raise
                 if not self.ckpt.all_steps():
                     raise
-                state, step = self.ckpt.restore(state)
+                state, step = self.ckpt.restore(
+                    state, shardings=self.state_shardings)
                 _C_REPLAYS.inc()
         if self.ckpt_every and self.ckpt.latest_step() != step:
             self.ckpt.save(step, state)      # final state must be durable

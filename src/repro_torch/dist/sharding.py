@@ -82,6 +82,22 @@ class Mesh:
         if self.size > 1:
             dist.barrier(group=self.group)
 
+    def device_mesh(self):
+        """The ``torch.distributed.DeviceMesh`` over the same ranks and
+        axis names (made once a mesh, on its first call: every rank must
+        make that call, since it creates a group an axis)."""
+        dm = self.__dict__.get("_device_mesh")
+        if dm is None:
+            from torch.distributed.device_mesh import DeviceMesh
+            ranks = torch.arange(self.size).reshape(self.shape)
+            if self.group is not None:
+                ranks = torch.tensor(dist.get_process_group_ranks(
+                    self.group)).reshape(self.shape)
+            dm = DeviceMesh(self.device.type, ranks,
+                            mesh_dim_names=self.axis_names)
+            object.__setattr__(self, "_device_mesh", dm)
+        return dm
+
 
 def _src(mesh: Mesh) -> int:
     """The global rank of the group's rank 0."""

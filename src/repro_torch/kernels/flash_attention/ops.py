@@ -19,12 +19,20 @@ nothing larger than (B, H, block, T) is made.
 
 For CUDA tensors the kernel (``csrc/flash_attention.cu``) runs; for CPU
 tensors its plain version (``ref.blocked_attention``) does; there is no
-other path. The module's ``launches`` counts kernel launches.
+other path. The module's ``launches`` counts kernel launches. Both are
+the implementations of one PyTorch custom op, ``repro_torch::
+flash_attention(q, k, v, scale, causal, window, q_offset)``, which also
+has a fake implementation (the output's shape and type: a fake tensor
+has no data pointer, so the dry run's fake world runs the model through
+it) and a FLOP formula for ``torch.utils.flop_counter``: 4 · D FLOP for
+each (query, key) pair the mask keeps, a pair a query head (``pairs``),
+the count ``PERF.md``'s bound for this kernel uses.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from .. import _build
@@ -82,9 +90,60 @@ def _check(q, k, v):
         raise ValueError(f"head_dim {D} > 256 is not supported by the kernel")
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cpu")
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, causal: bool, window: int,
+              q_offset: int) -> torch.Tensor:
+    """The CPU implementation: the plain version."""
+    return _ref.blocked_attention(q, k, v, scale=scale, causal=causal,
+                                  window=window, q_offset=q_offset)
+
+
+@_flash_op.register_kernel("cuda")
+def _flash_cuda(q, k, v, scale, causal, window, q_offset):
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    if q.numel():
+        _launch(q, k, v, out, scale=scale, causal=causal, window=window,
+                q_offset=q_offset)
+    return out
+
+
+@_flash_op.register_fake
+def _flash_fake(q, k, v, scale, causal, window, q_offset):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def pairs(S: int, T: int, causal: bool, window: int,
+          q_offset: int = 0) -> int:
+    """The (query, key) pairs of one head that the mask keeps: query i
+    (absolute position q_offset + i) against keys j <= its position when
+    causal, and j > position - window with a window."""
+    p = q_offset + np.arange(S, dtype=np.int64)
+    hi = np.minimum(p, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(p - window + 1, 0) if window > 0 else np.zeros(S,
+                                                                   np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def _flops(q_shape, k_shape, v_shape, scale, causal, window, q_offset=0,
+           *args, out_shape=None, **kw) -> int:
+    B, S, H, D = q_shape
+    return 4 * D * B * H * pairs(S, k_shape[1], causal, window, q_offset)
+
+
+def _register_flops():
+    from torch.utils.flop_counter import register_flop_formula
+    register_flop_formula(torch.ops.repro_torch.flash_attention)(_flops)
+
+
+_register_flops()
+
+
 def attention(q, k, v, *, scale: float, causal: bool, window: int = 0,
               q_offset: int = 0):
-    """q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D) in q's type.
+    """q (B, S, H, D), k/v (B, T, KH, D) -> (B, S, H, D) in q's type, through
+    the custom op ``repro_torch::flash_attention``.
 
     Inference only: it records no gradient (``flash_attention_lm`` and
     ``flash_attention`` do).
@@ -94,14 +153,8 @@ def attention(q, k, v, *, scale: float, causal: bool, window: int = 0,
         raise RuntimeError("attention() records no gradient; use "
                            "flash_attention_lm() for a differentiable "
                            "call")
-    if q.device.type == "cpu":
-        return _ref.blocked_attention(q, k, v, scale=scale, causal=causal,
-                                      window=window, q_offset=q_offset)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    if q.numel():
-        _launch(q, k, v, out, scale=scale, causal=causal, window=window,
-                q_offset=q_offset)
-    return out
+    return torch.ops.repro_torch.flash_attention(
+        q, k, v, float(scale), bool(causal), int(window), int(q_offset))
 
 
 # query rows of one block of the recompute backward: (B, H, BWD_BLOCK, T)

@@ -15,12 +15,16 @@ and the mesh built inside functions only.
                              the world; D·M must equal its size
   ``mesh_from_arg``          the CLI ``--mesh DxM`` string -> a mesh
                              (``None``: the world's size x 1)
+  ``make_production_mesh``   the production (data, model) mesh of 16 x 16
+                             = 256 ranks, or (pod, data, model) of
+                             2 x 16 x 16 = 512, over the initialized world
+                             (a ``torchrun`` world or the dry run's fake
+                             one, ``launch/dryrun.py``)
 
 The backend a launcher initializes is ``nccl`` on ``cuda`` and ``gloo``
 on ``cpu``; nothing switches backend quietly. NCCL refuses two ranks on
 one card, so a caller that puts ranks on a shared card initializes
-``gloo`` itself. The reference's ``make_production_mesh`` (a 16x16 v5e
-pod) belongs with the dry-run launcher, ROADMAP.md §1 item 14.
+``gloo`` itself.
 """
 from __future__ import annotations
 
@@ -97,6 +101,29 @@ def make_local_mesh(shape=(1, 1), axes=("data", "model"), *,
     shape = tuple(int(s) for s in shape)
     return Mesh(shape, tuple(axes), None, dist.get_rank(),
                 dist.get_world_size(), rank_device(device))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The production mesh over the initialized world: (data, model) of
+    16 x 16 = 256 ranks, or with ``multi_pod`` (pod, data, model) of
+    2 x 16 x 16 = 512 (the reference's is a 16x16 v5e pod, or two). The
+    world must have exactly that many ranks; a world of another size
+    raises, naming both counts."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    n = 1
+    for s in shape:
+        n *= s
+    have = dist.get_world_size() if dist.is_initialized() else 1
+    if have != n:
+        raise RuntimeError(
+            f"mesh {shape} needs {n} ranks, the world has {have} -- run "
+            f"under launch/dryrun.py, which makes a fake world of {n}")
+    from ..dist.sharding import Mesh
+    dev = torch.device(device)
+    return Mesh(shape, axes, None, dist.get_rank(), n,
+                torch.device(dev.type) if dev.type == "cpu"
+                else torch.device(dev.type, 0))
 
 
 def mesh_from_arg(arg=None, *, device="cuda"):

@@ -27,12 +27,18 @@ hubert-xlarge) exits: this launcher makes tokens only, and the
 reference's dies on such a model; ``train_step`` takes their embeddings.
 
 ``--mesh DxM`` runs on a world of D·M ranks (``torchrun``, or a process
-group the caller initialized): each rank takes rows ``[d·B/D, (d+1)·B/D)``
-of every global batch, d its data index; one all-reduce over the world
-averages the gradients (and the loss) over the data axis before the
-update; the M ranks of a data index run replicated, and rank 0 writes the
-checkpoints. Parameters and optimizer state are not sharded (ROADMAP.md
-§3).
+group the caller initialized) with the reference's plan
+(``models/sharding_plan``): the full state is made from the seeded
+generator on every rank (the same weights as ``1x1``), then each rank
+keeps its shard of every parameter and of Adam's m and v (FSDP over the
+data axis, Megatron's split over the model axis; the step count and
+step replicated), takes rows ``[d·B/D, (d+1)·B/D)`` of every global batch,
+d its data index, and runs the sharded step (``train_step``): the
+gradients come back reduce-scattered into the parameters' placements,
+so no all-reduce of the gradients follows. Checkpoints hold the full
+arrays (gathered, written by rank 0), so a run restores on another mesh
+shape. A world of ``gloo`` ranks sharing the card routes the collectives
+through gloo's own (``sharding_plan.collectives``), and says so.
 """
 from __future__ import annotations
 
@@ -61,7 +67,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="use the reduced smoke config (CPU-friendly)")
     ap.add_argument("--mesh", default="1x1",
                     help="data x model, e.g. 4x2 (needs a world of that "
-                         "many ranks)")
+                         "many ranks): parameters and Adam state sharded "
+                         "by the plan, FSDP over data x TP over model")
     ap.add_argument("--resume", action="store_true",
                     help="restore the newest checkpoint in --ckpt-dir first")
     ap.add_argument("--device", default="cuda",
@@ -70,23 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def batch_for(step: int, batch: int, seq: int, vocab: int, device, *,
-              rows=None):
+def batch_for(step: int, batch: int, seq: int, vocab: int, device):
     """Step ``step``'s tokens (labels = tokens) from a generator seeded
-    ``step``; ``rows`` (a slice) keeps a rank's rows of the global
-    batch."""
+    ``step``."""
     g = torch.Generator(device=device).manual_seed(step)
     toks = torch.randint(0, vocab, (batch, seq), generator=g, device=device)
-    if rows is not None:
-        toks = toks[rows]
     return {"tokens": toks, "labels": toks}
 
 
 def main(argv=None):
-    """Train; returns ``{"steps", "history", "state"}``: the steps done,
-    one ``{"step", "ms", "loss", "aux", "grad_norm", "lr"}`` a step run
-    (``ms`` on the host clock around the step, which ends in a device
-    sync) and the final ``TrainState``."""
+    """Train; returns ``{"steps", "history", "state", "plan"}``: the steps
+    done, one ``{"step", "ms", "loss", "aux", "grad_norm", "lr"}`` a step
+    run (``ms`` on the host clock around the step, which ends in a device
+    sync), the final ``TrainState`` (DTensor leaves on a mesh) and the
+    mesh's ``sharding_plan.Plan`` (None without one)."""
     ap = build_parser()
     args = ap.parse_args(argv)
     if args.resume and not args.ckpt_dir:
@@ -125,33 +129,32 @@ def _train(args, cfg, dev, mesh):
     from ..device import sync
     from ..dist.checkpoint import CheckpointManager
     from ..dist.fault import ResilientLoop
-    from ..train.optimizer import AdamWConfig
-    from ..train.train_step import init_state, make_train_step
+    from ..models import sharding_plan as sp
+    from ..train.optimizer import AdamWConfig, OptState
+    from ..train.train_step import TrainState, init_state, make_train_step
 
-    rows, hook = None, None
+    state = init_state(cfg, 0, device=dev)
+    shard_fns = psh = state_sh = bsh = plan = None
+    route = contextlib.nullcontext()
     if mesh is not None:
-        d = mesh.axis_sizes["data"]
-        per = args.batch // d
-        b = mesh.block_index("data")
-        rows = slice(b * per, (b + 1) * per)
-
-        def hook(grads, sums):
-            """The data axis's mean: one all-reduce over the world (the
-            model axis's replicas add the same terms M times)."""
-            if mesh.size == 1:
-                return
-            for g in grads:
-                dist.all_reduce(g, group=mesh.group)
-                g.div_(mesh.size)
-            for k in sums:
-                t = torch.as_tensor(sums[k], dtype=torch.float32,
-                                    device=dev).clone()
-                dist.all_reduce(t, group=mesh.group)
-                sums[k] = t / mesh.size
+        plan = sp.plan_for(cfg, mesh, args.batch, state.params)
+        specs = plan.param_specs
+        psh = plan.sharding(specs)
+        state_sh = plan.sharding(TrainState(specs, OptState(specs, specs,
+                                                            None), None))
+        state = state_sh(state)         # each rank keeps its shard
+        shard_fns = plan.shard_fns
+        shape = torch.empty((args.batch, args.seq), device="meta")
+        bsh = plan.sharding(sp.batch_pspecs(
+            cfg, "train", args.batch, mesh, {"tokens": shape,
+                                             "labels": shape}))
+        route = sp.collectives(mesh)
+        if route.route != "functional":
+            print(f"collectives: {route.route} (gloo on {dev.type})")
 
     step_fn = make_train_step(cfg, AdamWConfig(lr=args.lr),
-                              microbatches=args.micro, grad_hook=hook)
-    state = init_state(cfg, 0, device=dev)
+                              microbatches=args.micro, shard_fns=shard_fns,
+                              grad_shardings=psh)
     history = []
 
     def step_and_log(st, batch):
@@ -165,26 +168,30 @@ def _train(args, cfg, dev, mesh):
         return st
 
     def batches(step):
-        return batch_for(step, args.batch, args.seq, cfg.vocab_size, dev,
-                         rows=rows)
+        b = batch_for(step, args.batch, args.seq, cfg.vocab_size, dev)
+        return b if bsh is None else bsh(b)
 
     t0 = time.time()
-    if args.ckpt_dir:
-        cm = CheckpointManager(args.ckpt_dir, keep=3, mesh=mesh)
-        loop = ResilientLoop(step_and_log, cm, ckpt_every=args.ckpt_every)
+    with route:
+        if args.ckpt_dir:
+            cm = CheckpointManager(args.ckpt_dir, keep=3, mesh=mesh)
+            loop = ResilientLoop(step_and_log, cm,
+                                 ckpt_every=args.ckpt_every,
+                                 state_shardings=state_sh)
 
-        class B:
-            n_steps = args.steps
+            class B:
+                n_steps = args.steps
 
-            def __call__(self, s):
-                return batches(s)
-        state, steps = loop.run(state, B(), resume=args.resume)
-    else:
-        for s in range(args.steps):
-            state = step_and_log(state, batches(s))
-        steps = args.steps
+                def __call__(self, s):
+                    return batches(s)
+            state, steps = loop.run(state, B(), resume=args.resume)
+        else:
+            for s in range(args.steps):
+                state = step_and_log(state, batches(s))
+            steps = args.steps
     dt = time.time() - t0
-    out = {"steps": steps, "history": history, "state": state}
+    out = {"steps": steps, "history": history, "state": state,
+           "plan": plan if mesh is not None else None}
     if not history:             # --resume past --steps: nothing left to run
         print(f"done: already at step {steps}, no steps to run")
         return out

@@ -19,7 +19,8 @@ caches compare layer by layer.
 ``OptState(m, v, count)``, step; numpy leaves) into the port's
 ``train_step.TrainState``: m and v have the params' structure and are
 unstacked the same way. ``train_state_to_numpy`` returns a port state
-with numpy leaves, in the port's per-layer layout.
+with numpy leaves, in the port's per-layer layout (a DTensor leaf as its
+full array, gathered: every rank of its mesh must make the call).
 """
 from __future__ import annotations
 
@@ -86,6 +87,9 @@ def cache_to_numpy(cache: Dict[str, Any]) -> List[Dict[str, np.ndarray]]:
 
 
 def _numpy(t) -> np.ndarray:
+    from .sharding_plan import _is_dtensor
+    if _is_dtensor(t):
+        t = t.full_tensor()             # a collective every rank joins
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 

@@ -11,6 +11,12 @@ four-operand einsums are written as staged products: the largest tensor
 made is the (B, nc, nh, Q, Q) decay, never a (B, nc, Q, Q, nh, hp) one.
 
 Decode is the O(1) recurrent update: h' = h * exp(dt*A) + dt * (B ⊗ x).
+
+Given a DTensor (a model placed on a mesh, ``sharding_plan``), the mixer
+runs ``mamba2_dist``: the input projection and the conv on every rank,
+then the SSD of this rank's heads (``ssm_x`` over the model axis where
+the heads divide it), the gated norm's sum of squares all-reduced, and
+the output projection's partial sums all-reduced.
 """
 from __future__ import annotations
 
@@ -108,8 +114,12 @@ def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 128,
 def _in_proj(params: Params, x, cfg):
     """The mixer's input projection, split: z, the conv input (x, B, C)
     and the raw dt."""
+    return _split_in_proj(x @ params["in_proj"].to(x.dtype), cfg)
+
+
+def _split_in_proj(zxbcdt, cfg):
+    """The input projection's output as z, the conv input and raw dt."""
     di, st = cfg.d_inner, cfg.ssm_state
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
     z, xin, Bm, Cm, dt_raw = torch.split(
         zxbcdt, [di, di, st, st, zxbcdt.shape[-1] - 2 * di - 2 * st], dim=-1)
     return z, torch.cat([xin, Bm, Cm], dim=-1), dt_raw
@@ -131,22 +141,40 @@ def _ssm_inputs(params: Params, conv_out, dt_raw, cfg, dt_):
     return xh, Bm, Cm, dt, A
 
 
-def _out_proj(params: Params, y, xh, z, cfg, dt_):
+def _out_proj(params: Params, y, xh, z, cfg, dt_, psum=None):
     """D skip, gated RMSNorm and the output projection, in the type of
-    ``xh`` (the compute type ``dt_`` or a wider one, as above)."""
+    ``xh`` (the compute type ``dt_`` or a wider one, as above); on a mesh
+    of some of the heads, ``psum`` sums the norm's squares over them."""
     from .layers import rms_norm, silu
     B, S = xh.shape[:2]
     y = y.to(dt_) + xh * params["D"].to(dt_)[None, None, :, None]
-    y = y.reshape(B, S, cfg.d_inner)
-    y = rms_norm(y, params["norm"], cfg.rms_eps) * silu(z)
+    y = y.reshape(B, S, -1)
+    y = rms_norm(y, params["norm"], cfg.rms_eps, psum=psum,
+                 width=cfg.d_inner) * silu(z)
     return y @ params["out_proj"].to(dt_).to(y.dtype)
 
 
-def mamba2_block(params: Params, x, cfg, cache: Optional[Params] = None):
+def _ssm_step(h, xh, dt, A, Bm, Cm):
+    """The O(1) decode update of one token: h (B, nh, hp, st) ->
+    (y (B, 1, nh, hp), h')."""
+    dt1 = dt[:, 0]                                        # (B,nh)
+    g = torch.exp(dt1 * A[None, :])
+    upd = (dt1[:, :, None] * xh[:, 0].float())[..., None] \
+        * Bm[:, 0].float()[:, None, None, :]              # (B,nh,hp,st)
+    h_new = h * g[:, :, None, None] + upd
+    y = (h_new @ Cm[:, 0].float()[:, None, :, None])[..., 0]
+    return y.reshape(xh.shape[0], 1, *xh.shape[2:]), h_new
+
+
+def mamba2_block(params: Params, x, cfg, shard_fns=None,
+                 cache: Optional[Params] = None):
     """Full Mamba2 mixer. x: (B, S, D); cache: {'conv': (B,K-1,C), 'ssm': h}.
 
     Returns (out, new_cache): with a cache, the O(1) decode step of one
     token and a new cache dict; without, the chunked SSD and None."""
+    from .layers import _dist, shard
+    if _dist(x):
+        return mamba2_dist(params, x, cfg, shard_fns, cache)
     B, S, D = x.shape
     dt_ = x.dtype
     z, conv_in, dt_raw = _in_proj(params, x, cfg)
@@ -154,21 +182,103 @@ def mamba2_block(params: Params, x, cfg, cache: Optional[Params] = None):
     conv_out, new_conv = _conv1d_causal(conv_in, params["conv_w"].to(dt_),
                                         conv_state)
     xh, Bm, Cm, dt, A = _ssm_inputs(params, conv_out, dt_raw, cfg, dt_)
+    xh = shard(shard_fns, "ssm_x", xh)
 
     if cache is not None:
-        h = cache["ssm"]                                      # (B,nh,hp,st)
-        dt1 = dt[:, 0]                                        # (B,nh)
-        g = torch.exp(dt1 * A[None, :])
-        upd = (dt1[:, :, None] * xh[:, 0].float())[..., None] \
-            * Bm[:, 0].float()[:, None, None, :]              # (B,nh,hp,st)
-        h_new = h * g[:, :, None, None] + upd
-        y = (h_new @ Cm[:, 0].float()[:, None, :, None])[..., 0]
-        y = y.reshape(B, 1, cfg.ssm_heads, cfg.ssm_head_dim)
+        y, h_new = _ssm_step(cache["ssm"], xh, dt, A, Bm, Cm)
         new_cache = {"conv": new_conv, "ssm": h_new}
     else:
         y, _ = ssd_chunked(xh, dt, A, Bm.float(), Cm.float())
         new_cache = None
     return _out_proj(params, y, xh, z, cfg, dt_), new_cache
+
+
+def mamba2_dist(params: Params, x, cfg, sf, cache: Optional[Params] = None,
+                prefill: bool = False):
+    """The mixer on a mesh (module doc). ``cache`` (DTensors) makes it a
+    decode step; ``prefill`` returns the new cache of a prompt (the last
+    K-1 conv inputs and the final state); both in ``cache_pspecs``'s
+    placements."""
+    from . import sharding_plan as sp
+    from .layers import _columns, shard
+    B, S, D = x.shape
+    dt_ = x.dtype
+    M, r = sp.model_size(sf), sp.model_rank(sf)
+    nh, hp = cfg.ssm_heads, cfg.ssm_head_dim
+    split = nh % M == 0
+    Pt, Rp = sp.partial(), sp.replicate()
+    g = Pt if split else Rp
+    xR = sp.local(x, sp.act(sf, Rp))
+
+    def whole(name, grad=Rp):
+        return sp.weight(sf, params[name], keep_model=False, model_grad=grad)
+
+    full = {"conv_b": whole("conv_b"), "dt_bias": whole("dt_bias"),
+            "A_log": whole("A_log", g)}
+    # the input projection, every column on every rank (gathered from the
+    # plan's column split where it has one), then _in_proj's split of it
+    zxbcdt = _columns(sf, sp.local(x, sp.act(sf, Pt)), xR,
+                      params["in_proj"], None, False)
+    z, conv_in, dt_raw = _split_in_proj(zxbcdt, cfg)
+    conv_w = sp.weight(sf, params["conv_w"], keep_model=False,
+                       model_grad=Rp, dtype=dt_).to(dt_)
+    new_cache = None
+    if cache is not None:
+        state = cache["conv"].redistribute(
+            cache["conv"].device_mesh, sp.act(sf)).to_local()
+        conv_out, conv_state = _conv1d_causal(conv_in, conv_w, state)
+    else:
+        conv_out, _ = _conv1d_causal(conv_in, conv_w)
+        K = cfg.d_conv
+        conv_state = F.pad(conv_in, (0, 0, max(0, (K - 1) - S), 0))[
+            :, -(K - 1):]
+    xh, Bm, Cm, dt, A = _ssm_inputs(full, conv_out, dt_raw, cfg, dt_)
+
+    def mine(t, dim):
+        """This rank's heads of a tensor every rank computed whole."""
+        return sp.wrap(sf, t, sp.act(sf, Rp)).redistribute(
+            sf.dmesh, sp.act(sf, sp.shard_dim(dim))).to_local()
+
+    nl = nh // M if split else nh
+    h0 = r * nl if split else 0
+    xh = shard(sf, "ssm_x", sp.wrap(sf, xh, sp.act(sf, Rp))).to_local()
+    if split:
+        dt, z = mine(dt, 2), mine(z, 2)
+        Bm, Cm = (sp.local(sp.wrap(sf, t, sp.act(sf, Rp)), sp.act(sf, Pt))
+                  for t in (Bm, Cm))
+        A = A[h0:h0 + nl]
+    if cache is not None:
+        y, h_last = _ssm_step(cache["ssm"].to_local(), xh, dt, A, Bm, Cm)
+    else:
+        y, h_last = ssd_chunked(xh, dt, A, Bm.float(), Cm.float())
+
+    local = sp.Lazy(D=whole("D", g)[h0:h0 + nl],
+                    norm=whole("norm", g)[h0 * hp:(h0 + nl) * hp],
+                    out_proj=lambda: sp.weight(
+                        sf, params["out_proj"], keep_model=split,
+                        model_grad=g, dtype=dt_))
+    psum = (lambda t: sp.psum_model(sf, t)) if split and M > 1 else None
+    out = sp.join(sf, _out_proj(local, y, xh, z, cfg, dt_, psum),
+                  sp.act(sf, g))
+    if cache is not None or prefill:
+        conv_pl = _cache_pl(sf, "conv", conv_state.shape)
+        ssm_pl = [sp.shard_dim(1) if a == "model" and split else p
+                  for a, p in zip(sf.mesh.axis_names, sp.act(sf))]
+        new_cache = {
+            "conv": sp.wrap(sf, conv_state, sp.act(sf)).redistribute(
+                sf.dmesh, conv_pl),
+            "ssm": sp.wrap(sf, h_last, ssm_pl)}
+    return out, new_cache
+
+
+def _cache_pl(sf, name, local_shape):
+    """The placements ``cache_pspecs`` gives a cache leaf ``name`` whose
+    local shape (batch split as the activations) is ``local_shape``."""
+    from . import sharding_plan as sp
+    shape = (local_shape[0] * sp.dp_count(sf),) + tuple(local_shape[1:])
+    spec = sp.cache_pspecs(None, {name: torch.empty(shape, device="meta")},
+                           shape[0], sf.mesh)[name]
+    return sp.placements(sf.mesh, spec, len(shape))
 
 
 def init_mamba2_params(gen: torch.Generator, cfg,

@@ -2,8 +2,10 @@
 parameter trees (dicts and lists of tensors); the port of
 ``repro/train/optimizer.py``.
 
-The formula is the reference's, operation for operation: the gradients'
-global norm in f32, a clip to ``grad_clip``, linear warmup on the step
+The formula is the reference's, operation for operation, but for the
+gradients' global norm, whose sum of squares is accumulated in f64 and
+rounded to f32 once (``global_norm``): a clip to ``grad_clip``, linear
+warmup on the step
 count, bias corrections, and weight decay on every leaf from its f32
 value, cast back to the parameter's type. ``torch.optim.AdamW`` is not
 used: it clips, warms up and decays elsewhere and rounds in another
@@ -91,11 +93,17 @@ def init(params) -> OptState:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum, over the leaves in flatten order, of each leaf's
-    sum of f32 squares."""
+    f32 squares, accumulated in f64 and rounded to f32 once.
+
+    On a mesh each leaf's sum is taken shard by shard and then across
+    ranks, in another order than on one rank; in f64 that order moves the
+    sum by ~1e-16 of itself, far below the f32 result's half ulp (3e-8),
+    so the norm (and the clip it sets) stays bit for bit the one rank's.
+    """
     total = 0
     for g in tree_leaves(tree):
-        total = total + torch.sum(g.float() ** 2)
-    return torch.sqrt(total)
+        total = total + torch.sum(g.float() ** 2, dtype=torch.float64)
+    return torch.sqrt(total).float()
 
 
 def update(params, grads, state: OptState, cfg: AdamWConfig):

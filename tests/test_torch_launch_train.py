@@ -5,13 +5,17 @@
   equal bit for bit to an uninterrupted 6-step run (each step is a pure
   function of the state and the step's seeded tokens); ``--resume`` past
   ``--steps`` prints the reference's message.
-* ``--mesh`` on spawned ``gloo`` worlds (a ``FileStore``, no ports):
-  ``2x1`` (each rank two of the four rows, one all-reduce of the
-  gradients) equal bit for bit to ``1x1 --micro 2`` (the same sums), and
-  against ``1x1`` with the same flags within rtol 1e-4 on the losses
-  (measured: 2.9e-5) and the sum of the 4 steps' learning rates (3e-5)
-  on each parameter (measured: 8.6e-6); ``1x2`` (two replicas of the
-  whole batch) equal to ``1x1`` bit for bit.
+* ``--mesh`` on spawned ``gloo`` worlds (a ``FileStore``, no ports), the
+  parameters and Adam state sharded by the plan: ``2x1`` (FSDP over two
+  data ranks of two rows each) equal bit for bit to ``1x1 --micro 2``
+  (the same gradient sums; the clip's global norm is summed in f64, so
+  summing it shard by shard does not move its f32 bits); ``1x2`` (the
+  model axis split, Megatron style) and ``2x2`` against ``1x1`` with the
+  same flags within rtol 1e-4 on the losses and the sum of the 4 steps'
+  learning rates (3e-5) on each parameter (TP splits the row-parallel
+  products' sums, so not bit for bit). On every mesh each rank's local parameter and
+  Adam bytes equal the plan's arithmetic, and the gathered state is the
+  same on every rank.
 * The launcher's flags are the reference's plus ``--device``; a model
   that takes embeddings exits with a message; the default device is the
   card, which raises here.
@@ -98,12 +102,20 @@ def _child(rank, n, mesh, tmp):
         rank=rank, world_size=n, timeout=timedelta(seconds=WORLD_TIMEOUT))
     try:
         from repro_torch.launch import train as tr
+        from repro_torch.models import sharding_plan as sp
         from repro_torch.models.convert import train_state_to_numpy as tn
         res = tr.main(ARGS + ["--steps", "4", "--mesh", mesh,
                               "--ckpt-dir", os.path.join(tmp, "ck"),
                               "--ckpt-every", "2"])
-        torch.save({"history": res["history"],
-                    "state": tn(res["state"])},
+        st, plan = res["state"], res["plan"]
+        full = tn(st)
+        torch.save({"history": res["history"], "state": full,
+                    "bytes": [sp.local_bytes(t) for t in
+                              (st.params, st.opt.m, st.opt.v)],
+                    "planned": [sp.planned_bytes(_tensors(t),
+                                                 plan.param_specs, plan.mesh)
+                                for t in (full.params, full.opt.m,
+                                          full.opt.v)]},
                    os.path.join(tmp, f"rank{rank}.pt"))
     finally:
         if dist.is_initialized():
@@ -140,30 +152,33 @@ def _np_leaves(tree):
     return [np.asarray(x) for x in topt.tree_leaves(tree)]
 
 
-@pytest.mark.parametrize("mesh", ["2x1", "1x2"])
+def _tensors(tree):
+    return topt.tree_map(lambda a: torch.from_numpy(np.asarray(a)), tree)
+
+
+@pytest.mark.parametrize("mesh", ["2x1", "1x2", "2x2"])
 def test_mesh_against_one_rank(mesh, tmp_path, plain4):
     ranks = _world(tmp_path, mesh)
-    for r in ranks[1:]:            # every rank holds the same state
+    for r in ranks:                # each rank holds its plan's shard
+        assert r["bytes"] == r["planned"]
+    for r in ranks[1:]:            # the gathered state is the same
         assert _bitwise(_np_leaves(r["state"]), _np_leaves(ranks[0]["state"]))
     got, loss = ranks[0]["state"], [h["loss"] for h in ranks[0]["history"]]
     one = plain4["1"]
-    if mesh == "1x2":
-        assert loss == [h["loss"] for h in one["history"]]
-        assert _bitwise(_np_leaves(got), _leaves(one["state"]))
-    else:
-        # the mean of the two ranks' gradients is the 2-microbatch step's
+    if mesh == "2x1":
+        # the sum of the two ranks' gradients is the 2-microbatch step's
         two = plain4["2"]
         assert loss == [h["loss"] for h in two["history"]]
         assert _bitwise(_np_leaves(got), _leaves(two["state"]))
-        # against the whole batch at once: the same terms in another
-        # order, which Adam's first steps (lr · sign of each gradient
-        # element) turn into parameter differences of the order of lr
-        np.testing.assert_allclose(loss, [h["loss"] for h in one["history"]],
-                                   rtol=1e-4)
-        want = train_state_to_numpy(one["state"]).params
-        lr_sum = sum(h["lr"] for h in one["history"])
-        for a, b in zip(_np_leaves(got.params), _np_leaves(want)):
-            np.testing.assert_allclose(a, b, rtol=0, atol=lr_sum)
+    # against the whole batch at once: the same terms in another order,
+    # which Adam's first steps (lr · sign of each gradient element) turn
+    # into parameter differences of the order of lr
+    np.testing.assert_allclose(loss, [h["loss"] for h in one["history"]],
+                               rtol=1e-4)
+    want = train_state_to_numpy(one["state"]).params
+    lr_sum = sum(h["lr"] for h in one["history"])
+    for a, b in zip(_np_leaves(got.params), _np_leaves(want)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=lr_sum)
     # rank 0 wrote the checkpoints
     assert sorted(p.name for p in (tmp_path / "ck").iterdir()) == [
         f"step_{s:010d}.npz" for s in (0, 2, 4)]
